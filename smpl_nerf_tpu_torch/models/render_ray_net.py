@@ -1,0 +1,114 @@
+"""The NeRF MLP (counterpart of smpl_nerf_tpu/models/render_ray_net.py:RenderRayNet).
+
+Layer names follow the reference torch module, so a reference-layout
+state_dict (`model_coarse.pt`) loads with `load_state_dict` unchanged:
+
+  input [positions(+additional) || directions]
+  -> Linear(pos+add -> W) + ReLU                        (positions_pose_input)
+  -> (n_layers-1) x Linear(W -> W) + ReLU, with skip-concat of the raw
+     positions(+additional) input before layer i for i in `skips`
+                                                        (positional_net.{i})
+  -> Linear(W -> W), NO activation                      (additional_linear_layer)
+  -> sigma head Linear(W -> 1)                          (sigma_out_layer)
+  -> Linear(W + dir -> W/2), NO activation              (directional_input)
+  -> Linear(W/2 -> W/2) + ReLU                          (directional_net.0)
+  -> rgb head Linear(W/2 -> 3)                          (rgb_out_layer)
+  output [rgb, sigma] raw (activations live in core.integrate.raw2outputs).
+
+`compute_dtype=torch.bfloat16` rounds where flax `nn.Dense(dtype=bfloat16)`
+does: inputs and weights to bf16, the product rounded to bf16, then the bf16
+bias added in bf16. Parameters stay float32. `SirenRenderRayNet` is not ported
+yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def _linear(in_dim: int, out_dim: int, device) -> nn.Linear:
+    # no torch-default init here: reset_parameters draws from a generator
+    return nn.utils.skip_init(nn.Linear, in_dim, out_dim,
+                              device="cpu" if device is None else device)
+
+
+def init_linear_(layer: nn.Linear, generator: Optional[torch.Generator]) -> None:
+    """Flax's Dense init: lecun-normal kernel (clipped at 2 std), zero bias.
+
+    Values are drawn on the CPU so a seed gives the same weights on every
+    device.
+    """
+    fan_in = layer.weight.shape[1]
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    w = torch.empty(layer.weight.shape, dtype=torch.float32)
+    w.normal_(0.0, 1.0, generator=generator).clamp_(-2.0, 2.0).mul_(std)
+    with torch.no_grad():
+        layer.weight.copy_(w)
+        layer.bias.zero_()
+
+
+def dense(layer: nn.Linear, h: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Linear with flax Dense rounding at `compute_dtype`."""
+    if compute_dtype == torch.float32:
+        return F.linear(h, layer.weight, layer.bias)
+    y = torch.matmul(h.to(compute_dtype), layer.weight.to(compute_dtype).t())
+    return y + layer.bias.to(compute_dtype)
+
+
+class RenderRayNet(nn.Module):
+    def __init__(self, n_layers: int = 8, width: int = 256, positions_dim: int = 60,
+                 directions_dim: int = 24, additional_input_dim: int = 0,
+                 skips: Sequence[int] = (4,), use_directional_input: bool = True,
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_layers = int(n_layers)
+        self.width = int(width)
+        self.positions_dim = int(positions_dim)
+        self.directions_dim = int(directions_dim)
+        self.additional_input_dim = int(additional_input_dim)
+        self.skips = tuple(int(s) for s in skips)
+        self.use_directional_input = bool(use_directional_input)
+        self.compute_dtype = compute_dtype
+
+        pos_dim = self.positions_dim + self.additional_input_dim
+        self.positions_pose_input = _linear(pos_dim, width, device)
+        self.positional_net = nn.ModuleList([
+            _linear(width + (pos_dim if i in self.skips else 0), width, device)
+            for i in range(self.n_layers - 1)])
+        self.additional_linear_layer = _linear(width, width, device)
+        self.sigma_out_layer = _linear(width, 1, device)
+        dw = width // 2
+        self.directional_input = _linear(
+            width + (self.directions_dim if self.use_directional_input else 0), dw, device)
+        self.directional_net = nn.ModuleList([_linear(dw, dw, device)])
+        self.rgb_out_layer = _linear(dw, 3, device)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for layer in self.modules():
+            if isinstance(layer, nn.Linear):
+                init_linear_(layer, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        pos_dim = self.positions_dim + self.additional_input_dim
+        positions_pose = x[..., :pos_dim].to(cdt)
+        directions = x[..., x.shape[-1] - self.directions_dim:].to(cdt)
+
+        o = torch.relu(dense(self.positions_pose_input, positions_pose, cdt))
+        for i, layer in enumerate(self.positional_net):
+            if i in self.skips:
+                o = torch.cat([o, positions_pose], -1)
+            o = torch.relu(dense(layer, o, cdt))
+        o = dense(self.additional_linear_layer, o, cdt)
+        sigma = dense(self.sigma_out_layer, o, cdt)
+        if self.use_directional_input:
+            o = torch.cat([o, directions], -1)
+        o = dense(self.directional_input, o, cdt)
+        o = torch.relu(dense(self.directional_net[0], o, cdt))
+        rgb = dense(self.rgb_out_layer, o, cdt)
+        return torch.cat([rgb, sigma], -1).float()
