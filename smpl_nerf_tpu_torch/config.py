@@ -256,10 +256,11 @@ def config_parser() -> ConfigArgumentParser:
     parser.add_argument("--use_pallas", type=int, default=1,
                         help="1: fine sampling through the sample_pdf CUDA kernel on the GPU")
     parser.add_argument("--use_fused_mlp", type=int, default=0,
-                        help="2: run RenderRayNet as one fused CUDA kernel with "
-                             "in-kernel encoding (GPU); -1 (auto): 2 on the GPU "
-                             "for prefix-free bf16 nets the kernel takes, else 0; "
-                             "1 is not ported yet on the GPU")
+                        help="1: run RenderRayNet as one fused CUDA kernel on "
+                             "pre-encoded rows (takes a conditioning prefix); 2: "
+                             "with in-kernel encoding, forward and backward "
+                             "(prefix-free nets); -1 (auto): 2 on the GPU for "
+                             "prefix-free bf16 nets the kernels take, else 0")
     parser.add_argument("--foreground_sample_ratio", type=float, default=0.0,
                         help=">0: fraction of each ray batch drawn from foreground "
                              "(non-background) pixels. Synthetic human scenes are "
@@ -267,8 +268,8 @@ def config_parser() -> ConfigArgumentParser:
                              "white_background=1 collapses into the transparent-scene "
                              "dead-relu fixed point. 0 = reference behaviour.")
     parser.add_argument("--scan_steps", type=int, default=0,
-                        help=">1: run this many train steps per dispatch via lax.scan "
-                             "(amortizes host->device dispatch latency)")
+                        help="accepted for config compatibility: it only changes how "
+                             "the JAX package dispatches; steps run one batch at a time")
     parser.add_argument("--grid_encoding", type=int, default=0,
                         help="1: replace the frequency-encoded MLP with a "
                              "multi-res dense-grid encoder + tiny head "

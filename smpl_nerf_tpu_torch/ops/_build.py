@@ -10,7 +10,7 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 sin at arguments up to 2^9 * |x|, where `__sinf` is badly wrong.
 
 Libraries go to `build/torch_kernels/` at the repo root, named by a hash of
-the source and flags, so an edited source is rebuilt and never mixed with a
+the source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and never mixed with a
 stale library. The build happens at first use; `build_all()` starts one nvcc
 per source, all at once, for callers that want the build up front.
 """
@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("sample_pdf", "fused_mlp_v2_fwd")
+SOURCES = ("sample_pdf", "fused_mlp_v2_fwd", "fused_mlp_fwd", "fused_mlp_v2_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -48,8 +48,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the shared headers count too: an edited .cuh rebuilds every kernel
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -24,9 +24,14 @@ K-chunks (they stay hot in the 50 MB L2 across blocks). The wrapper packs the
 weights once per model (transposed to [K, N] bf16, K zero-padded to a
 multiple of 16) and caches the pack on the module.
 
-Forward only: the backward kernel (`_pallas_backward`) belongs to the training
-slice, so the CUDA path raises if a gradient is required. `launches` counts
-kernel launches.
+`FusedMlpV2` is the autograd Function of `--use_fused_mlp=2` on the card:
+forward kernel B, backward kernel C (csrc/fused_mlp_v2_bwd.cu, replacing the
+TPU kernel `_pallas_backward`): per tile it rebuilds the forward, walks the
+layers backwards on tensor cores, writes dX (the warp field of smpl_nerf
+trains through the rows) and adds every dW and db into global memory with
+float32 atomics, so those sums are not bit-identical from run to run.
+`reference_backward_raw` is its plain version: `torch.autograd.grad` through
+`reference_forward_raw`. `launches` counts launches of B, `launches_bwd` of C.
 """
 from __future__ import annotations
 
@@ -38,12 +43,12 @@ import numpy as np
 import torch
 
 from smpl_nerf_tpu_torch.ops import _build
-from smpl_nerf_tpu_torch.ops.fused_mlp import (MlpSpec, _param_order, flatten_params,
-                                               trunk_forward)
+from smpl_nerf_tpu_torch.ops.fused_mlp import (TILE_ROWS, MlpSpec, flatten_params,
+                                               packed, skip_mask,
+                                               topology_reason, trunk_forward, unpack_grads)
 
-TILE_ROWS = 64        # rows per block; must match kTile in the source
-MAX_WIDTH = 256       # 16 n-tiles of 16 over 8 warps
-launches = 0
+launches = 0          # kernel B (forward)
+launches_bwd = 0      # kernel C (backward)
 
 
 def encoding_matrices(d: int, n_freqs: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -102,77 +107,30 @@ def supports(spec: MlpSpec, pos_encoder, dir_encoder) -> bool:
             and dir_encoder.number_frequencies * 6 == spec.directions_dim)
 
 
+def reference_backward_raw(spec: MlpSpec, flat, x_raw: torch.Tensor, g: torch.Tensor):
+    """Plain PyTorch version of the v2 backward kernel: (dflat, dx) for the
+    output cotangent g [N, 4], by autograd through `reference_forward_raw`.
+
+    dflat follows `flat` ((d kernel [in, out], d bias) pairs), dx is [N, add+6].
+    """
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x_raw, *flat)]
+        y = reference_forward_raw(spec, leaves[1:], leaves[0])
+        dx, *dflat = torch.autograd.grad(y, leaves, g)
+    return tuple(dflat), dx
+
+
 def kernel_supports(spec: MlpSpec) -> str:
-    """'' if the CUDA kernel takes this net, else the reason it does not."""
-    if spec.dtype != "bfloat16":
-        return "the fused v2 CUDA kernel computes in bfloat16 (--compute_dtype=bfloat16)"
+    """'' if the CUDA kernels B and C take this net, else the reason they do not."""
+    reason = topology_reason(spec)
+    if reason:
+        return reason
     if spec.additional_input_dim:
-        return "nets with a conditioning prefix are not ported yet on CUDA (kernel v1/D)"
-    if spec.width % 32 or not 32 <= spec.width <= MAX_WIDTH:
-        return f"width must be a multiple of 32 in [32, {MAX_WIDTH}], got {spec.width}"
+        return ("prefix rows are not ported yet in the fused v2 CUDA kernels; a net with a "
+                "conditioning prefix runs through --use_fused_mlp=1 (the v1 kernel) or 0")
     if spec.positions_dim <= 0 or spec.directions_dim <= 0:
         return "the kernel needs positional and directional encodings"
-    if not 1 <= spec.n_layers <= 32 or any(not 0 <= s < 32 for s in spec.skips):
-        return "the kernel takes 1 to 32 layers with skip indices in [0, 32)"
     return ""
-
-
-def _round16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
-def pack_weights(spec: MlpSpec, flat, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(weights bf16 [total], biases f32 [total], table int32 [L, 4]).
-
-    Layers in kernel order: positions_pose_input, positional_net_0..n-2,
-    additional_linear_layer, directional_input, directional_net_0, then the
-    heads sigma_out_layer and rgb_out_layer. Each kernel is [K, N] row-major,
-    its input segments ([activation W] and the encoded block it concatenates)
-    each zero-padded to a multiple of 16 rows; table row = (weight offset,
-    bias offset, K, N) in elements.
-    """
-    it = iter(flat)
-    layers = {name: (next(it), next(it)) for name in _param_order(spec)}
-    W, P, D = spec.width, spec.positions_dim, spec.directions_dim
-    act, pos, dirs, half = (W, W), (P, _round16(P)), (D, _round16(D)), (W // 2, W // 2)
-    order = [("positions_pose_input", [pos])]
-    order += [(f"positional_net_{i}", [act] + ([pos] if i in spec.skips else []))
-              for i in range(spec.n_layers - 1)]
-    order += [("additional_linear_layer", [act]),
-              ("directional_input", [act] + ([dirs] if spec.use_directional_input else [])),
-              ("directional_net_0", [half]),
-              ("sigma_out_layer", [act]),
-              ("rgb_out_layer", [half])]
-    w_parts, b_parts, table = [], [], []
-    w_off = b_off = 0
-    for name, segments in order:
-        k, b = layers[name]
-        k = k.detach().float().cpu()
-        rows, r = [], 0
-        for real, padded in segments:
-            rows.append(k[r:r + real])
-            rows.append(torch.zeros(padded - real, k.shape[1]))
-            r += real
-        if r != k.shape[0]:
-            raise ValueError(f"{name}: kernel has {k.shape[0]} input rows, expected {r}")
-        kp = torch.cat(rows).to(torch.bfloat16)
-        table.append((w_off, b_off, kp.shape[0], kp.shape[1]))
-        w_parts.append(kp.reshape(-1))
-        b_parts.append(b.detach().float().cpu().reshape(-1))
-        w_off += kp.numel()
-        b_off += b.numel()
-    return (torch.cat(w_parts).to(device), torch.cat(b_parts).to(device),
-            torch.tensor(table, dtype=torch.int32, device=device))
-
-
-def _packed(spec: MlpSpec, net: torch.nn.Module, device):
-    """The module's weight pack on `device`, rebuilt when a parameter changes."""
-    key = (spec, str(device), tuple((p.data_ptr(), p._version) for p in net.parameters()))
-    cached = getattr(net, "_fused_v2_pack", None)
-    if cached is None or cached[0] != key:
-        cached = (key, pack_weights(spec, flatten_params(spec, net), device))
-        net._fused_v2_pack = cached
-    return cached[1]
 
 
 @functools.cache
@@ -184,9 +142,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on raw rows [N, 6] (float32, CUDA) -> [N, 4] float32."""
-    global launches
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("fused_mlp_v2_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_mlp_v2_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                            ctypes.c_uint, i, i, p]
+    lib.fused_mlp_v2_bwd_launch.restype = ctypes.c_int
+    lib.fused_mlp_v2_bwd_scratch_elems.argtypes = [i, i]
+    lib.fused_mlp_v2_bwd_scratch_elems.restype = ctypes.c_int
+    return lib
+
+
+def _check_rows(spec: MlpSpec, x_raw: torch.Tensor) -> None:
     reason = kernel_supports(spec)
     if reason:
         raise ValueError(reason)
@@ -196,33 +164,93 @@ def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor)
     if x_raw.dim() != 2 or x_raw.shape[1] != raw_in_dim(spec) or not x_raw.is_contiguous():
         raise ValueError(f"fused v2 kernel takes contiguous [N, {raw_in_dim(spec)}] rows, "
                          f"got {tuple(x_raw.shape)}")
-    if torch.is_grad_enabled() and (x_raw.requires_grad
-                                    or any(p.requires_grad for p in net.parameters())):
-        raise RuntimeError("the fused v2 CUDA kernel is forward only (its backward kernel "
-                           "is not ported yet): run it under torch.no_grad()")
-    w, b, table = _packed(spec, net, x_raw.device)
+
+
+def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B on raw rows [N, 6] (float32, CUDA) -> [N, 4] float32."""
+    global launches
+    _check_rows(spec, x_raw)
+    w, b, table = packed(spec, net, x_raw.device)
     N = x_raw.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=x_raw.device)
     if N == 0:
         return out
     pos_f, dir_f = _spec_freqs(spec)
-    skip_mask = sum(1 << s for s in spec.skips if s < spec.n_layers - 1)
     lib = _lib()
     stream = torch.cuda.current_stream(x_raw.device).cuda_stream
     err = lib.fused_mlp_v2_fwd_launch(
         x_raw.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), table.data_ptr(),
-        N, spec.n_layers, spec.width, pos_f, dir_f, skip_mask,
+        N, spec.n_layers, spec.width, pos_f, dir_f, skip_mask(spec),
         int(spec.use_directional_input), stream)
     _build.check(lib, err, "fused_mlp_v2_fwd")
     launches += 1
     return out
 
 
+def fused_backward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor,
+                        g: torch.Tensor):
+    """Launch kernel C: (dflat, dx) for raw rows [N, 6] and cotangent g [N, 4].
+
+    dflat are float32 (d kernel [in, out], d bias) pairs in `_param_order`
+    (views of two buffers the kernel adds into), dx is [N, 6] float32.
+    """
+    global launches_bwd
+    _check_rows(spec, x_raw)
+    N = x_raw.shape[0]
+    if (g.device != x_raw.device or g.dtype != torch.float32 or tuple(g.shape) != (N, 4)
+            or not g.is_contiguous()):
+        raise ValueError(f"fused v2 backward takes a contiguous float32 [N, 4] cotangent on "
+                         f"{x_raw.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    device = x_raw.device
+    w, b, table = packed(spec, net, device)
+    dw = torch.zeros(w.numel(), dtype=torch.float32, device=device)
+    db = torch.zeros(b.numel(), dtype=torch.float32, device=device)
+    dx = torch.empty((N, 6), dtype=torch.float32, device=device)
+    if N:
+        pos_f, dir_f = _spec_freqs(spec)
+        lib = _lib_bwd()
+        # a persistent grid: one block per SM, each looping over 64-row tiles
+        # with its own slice of the activation scratch
+        n_tiles = -(-N // TILE_ROWS)
+        grid = min(n_tiles, torch.cuda.get_device_properties(device).multi_processor_count)
+        acts = torch.empty(grid * lib.fused_mlp_v2_bwd_scratch_elems(spec.n_layers, spec.width),
+                           dtype=torch.bfloat16, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.fused_mlp_v2_bwd_launch(
+            x_raw.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            acts.data_ptr(), w.data_ptr(), b.data_ptr(), table.data_ptr(),
+            N, spec.n_layers, spec.width, pos_f, dir_f, skip_mask(spec),
+            int(spec.use_directional_input), grid, stream)
+        _build.check(lib, err, "fused_mlp_v2_bwd")
+        launches_bwd += 1
+    return unpack_grads(spec, dw, db), dx
+
+
+class FusedMlpV2(torch.autograd.Function):
+    """Forward: kernel B. Backward: kernel C, which returns the gradient of
+    every kernel and bias and of the raw rows."""
+
+    @staticmethod
+    def forward(ctx, spec, net, x_raw, *flat):
+        ctx.spec, ctx.net = spec, net
+        ctx.save_for_backward(x_raw)
+        return fused_forward_cuda(spec, net, x_raw.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        (x_raw,) = ctx.saved_tensors
+        dflat, dx = fused_backward_cuda(ctx.spec, ctx.net, x_raw.detach(), g.contiguous())
+        needs = ctx.needs_input_grad[2:]
+        return (None, None, *[t if need else None for t, need in zip((dx, *dflat), needs)])
+
+
 def fused_apply_raw(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor) -> torch.Tensor:
     """Apply the net to RAW rows [N, additional || xyz(3) || unit dir(3)].
 
-    CPU rows take the plain version; CUDA rows take the kernel.
+    CPU rows take the plain version; CUDA rows take the kernels (B forward,
+    and C backward where a gradient is asked for).
     """
+    flat = flatten_params(spec, net)
     if x_raw.device.type == "cpu":
-        return reference_forward_raw(spec, flatten_params(spec, net), x_raw)
-    return fused_forward_cuda(spec, net, x_raw)
+        return reference_forward_raw(spec, flat, x_raw)
+    return FusedMlpV2.apply(spec, net, x_raw, *flat)

@@ -1,21 +1,23 @@
-"""Rendering pipelines (counterpart of smpl_nerf_tpu/pipelines.py), nerf and smpl_nerf.
+"""Rendering pipelines (counterpart of smpl_nerf_tpu/pipelines.py): nerf, smpl_nerf
+and the two append families (append_to_nerf, append_smpl_params).
 
 A pipeline is ``pipeline(batch, generator=None, train=False) -> outputs dict``
 over nn.Modules that hold their own weights. Batch layout (tensors on one
 device): ray_translation [R,3], ray_direction [R,3] (+ human_pose [R,69] for
-smpl_nerf).
+the pose-conditioned families). The append families hand the (encoded) pose,
+two joints or all 69, to both nets as a per-ray conditioning prefix.
 
 The MLP runner owns the encoding step:
   * use_fused_mlp=0: PositionalEncoder + the RenderRayNet module,
-  * use_fused_mlp=2: raw 24 B/sample rows to the fused v2 forward
-    (ops/fused_mlp_v2.py): the CUDA kernel on the card, its plain version on
-    the CPU,
-  * use_fused_mlp=1: the plain v1 forward on the CPU; the v1 kernel is not
-    ported yet, so CUDA raises,
+  * use_fused_mlp=1: encode, then the fused v1 forward (ops/fused_mlp.py): the
+    CUDA kernel on the card, its plain version on the CPU; takes any prefix,
+  * use_fused_mlp=2: raw 24 B/sample rows to the fused v2 kernels
+    (ops/fused_mlp_v2.py), forward and, under autograd, backward; prefix-free
+    nets only on the card,
   * use_fused_mlp=-1 (auto): as JAX's auto picks on its accelerator, mode 2
-    on CUDA for each net the v2 kernel takes (prefix-free, bf16, W <= 256),
+    on CUDA for each net the v2 kernels take (prefix-free, bf16, W <= 256),
     else mode 0; always mode 0 on the CPU.
-Every model_type other than nerf / original_nerf / smpl_nerf is not ported yet.
+Every other model_type is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,12 +32,13 @@ from smpl_nerf_tpu_torch.core.sampling import coarse_sampling, fine_sampling
 from smpl_nerf_tpu_torch.ops import fused_mlp as fused_mod
 from smpl_nerf_tpu_torch.ops import fused_mlp_v2 as fused_v2
 
-PORTED_MODEL_TYPES = ("nerf", "original_nerf", "smpl_nerf")
+PORTED_MODEL_TYPES = ("nerf", "original_nerf", "smpl_nerf", "append_to_nerf",
+                      "append_smpl_params")
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """The rendering configuration the nerf / smpl_nerf pipelines read."""
+    """The rendering configuration the ported pipelines read."""
     model_type: str = "nerf"
     near: float = 1.0
     far: float = 4.0
@@ -139,8 +142,10 @@ def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
             reason = fused_v2.kernel_supports(spec) if device.type == "cuda" else ""
             if reason:
                 raise ValueError(f"--use_fused_mlp=2 on CUDA: {reason}")
-        elif mode == 1 and device.type != "cpu":
-            raise _not_ported("--use_fused_mlp=1 on CUDA (fused v1 kernel)")
+        elif mode == 1:
+            reason = fused_mod.kernel_supports(spec) if device.type == "cuda" else ""
+            if reason:
+                raise ValueError(f"--use_fused_mlp=1 on CUDA: {reason}")
         modes[key], specs[key] = mode, spec
 
     def _rows(parts, R, S):
@@ -157,8 +162,7 @@ def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
             return raw.reshape(R, S, raw.shape[-1])
         inputs = _rows(lead + [pos_enc.encode(samples), dir_enc.encode(dirs_unit)], R, S)
         if mode:
-            raw = fused_mod.reference_forward(specs[key],
-                                              fused_mod.flatten_params(specs[key], net), inputs)
+            raw = fused_mod.fused_apply(specs[key], net, inputs.contiguous())
         else:
             raw = net(inputs)
         return raw.reshape(R, S, raw.shape[-1])
@@ -183,7 +187,7 @@ class Pipeline:
 
 def build_pipeline(cfg: RenderConfig, models: Dict[str, torch.nn.Module],
                    encoders: Dict[str, PositionalEncoder]) -> Pipeline:
-    """The pipeline function for cfg.model_type (nerf / original_nerf / smpl_nerf)."""
+    """The pipeline function for cfg.model_type (one of PORTED_MODEL_TYPES)."""
     if cfg.model_type not in PORTED_MODEL_TYPES:
         raise _not_ported(f"model_type {cfg.model_type!r}")
     _run = _make_net_runner(cfg, models, encoders)
@@ -253,5 +257,42 @@ def build_pipeline(cfg: RenderConfig, models: Dict[str, torch.nn.Module],
                       warped_samples=warped_f, densities=out_f.density)
         return result
 
-    fn = smpl_nerf_fn if cfg.model_type == "smpl_nerf" else nerf_fn
+    def _append_fn(pose_of_batch: Callable):
+        def fn(batch, gen, train):
+            samples, z_vals = coarse_sampling(batch["ray_translation"], batch["ray_direction"],
+                                              cfg.near, cfg.far, cfg.number_coarse_samples, gen)
+            noise = cfg.sigma_noise_std if train else 0.0
+            origins = batch["ray_translation"]
+            dirs = batch["ray_direction"]
+            R = samples.shape[0]
+            pose = pose_of_batch(batch)
+            pose_feat = (encoders["human_pose"].encode(pose) if cfg.human_pose_encoding
+                         else pose)
+            dirs_exp = dirs[:, None, :].expand(samples.shape)
+            dirs_unit = _normalize(dirs)[:, None, :]
+            raw = _run("model_coarse", samples, dirs_unit, prefix=pose_feat)
+            out = raw2outputs(raw, z_vals, dirs_exp, noise, cfg.white_background, gen)
+            result = {"rgb_coarse": out.rgb, "densities": out.density, "ray_samples": samples}
+            if not cfg.run_fine:
+                result["rgb_fine"] = out.rgb
+                return result
+            z_fine, samples_fine = fine_sampling(origins, dirs, z_vals, out.weights,
+                                                 cfg.number_fine_samples, cfg.use_pallas)
+            Sf = samples_fine.shape[1]
+            dirs_fine = dirs[:, None, :].expand(R, Sf, 3)
+            raw_f = _run("model_fine", samples_fine, dirs_unit, prefix=pose_feat)
+            out_f = raw2outputs(raw_f, z_fine, dirs_fine, noise, cfg.white_background, gen)
+            result.update(rgb_fine=out_f.rgb, densities=out_f.density,
+                          ray_samples=samples_fine)
+            return result
+        return fn
+
+    if cfg.model_type == "smpl_nerf":
+        fn = smpl_nerf_fn
+    elif cfg.model_type == "append_to_nerf":
+        fn = _append_fn(lambda batch: two_joint_pose(cfg, batch))
+    elif cfg.model_type == "append_smpl_params":
+        fn = _append_fn(lambda batch: batch["human_pose"])
+    else:
+        fn = nerf_fn
     return Pipeline(fn, cfg, models, encoders)

@@ -3,7 +3,9 @@
 A run directory holds the fully resolved `config.txt` and one reference-layout
 torch state_dict per model: `model_coarse.pt`, `model_fine.pt`,
 `model_warp_field.pt` — exactly what the JAX package's
-`checkpoints.export_torch_run` writes next to its msgpack weights.
+`checkpoints.export_torch_run` writes next to its msgpack weights. A training
+run also keeps `train_state.pt`, the port's own resume state (optimizer
+moments, EMA shadow, raw weights, epoch, best validation loss).
 
 `params_from_jax` carries weights over from a JAX params tree of numpy arrays:
 flax Dense `kernel [in, out]` becomes torch `weight [out, in]`, and the flax
@@ -13,7 +15,7 @@ names `positional_net_{i}` / `directional_net_0` become the reference's
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -73,3 +75,38 @@ def load_run(run_dir: str) -> Dict[str, Dict[str, torch.Tensor]]:
     if "model_coarse" not in state_dicts:
         raise FileNotFoundError(f"no model_coarse.pt in {run_dir}")
     return state_dicts
+
+
+def save_train_state(run_dir: str, optimizer_state: Mapping, ema_params=None,
+                     epoch: Optional[int] = None, raw_params=None,
+                     best_val: Optional[float] = None) -> None:
+    """Full-fidelity resume state: optimizer moments (+ EMA shadow + RAW weights + epoch).
+
+    `save_run` persists weights only, so a run cut mid-way would restart
+    Adam's moments cold. With --param_ema, `save_run` stores the EMA shadow as
+    the run's weights, so the raw training weights the moments belong to are
+    kept here too.
+    """
+    def cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu()
+        if isinstance(tree, Mapping):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [cpu(v) for v in tree]
+        return tree
+
+    state = {"optimizer": cpu(optimizer_state), "ema": cpu(ema_params), "raw": cpu(raw_params),
+             "epoch": None if epoch is None else int(epoch),
+             "best_val": (float(best_val) if best_val is not None and np.isfinite(best_val)
+                          else None)}
+    os.makedirs(run_dir, exist_ok=True)
+    torch.save(state, os.path.join(run_dir, "train_state.pt"))
+
+
+def load_train_state(run_dir: str, device="cpu") -> Optional[dict]:
+    """The dict `save_train_state` wrote (tensors on `device`), or None if absent."""
+    path = os.path.join(run_dir, "train_state.pt")
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location=device, weights_only=True)

@@ -1,7 +1,7 @@
 """Model factory (counterpart of smpl_nerf_tpu/training/factory.py:build_models_and_params).
 
-The nerf / smpl_nerf subset: model_type -> nn.Modules with weights drawn from
-a seeded torch.Generator (flax's Dense init: lecun-normal kernels, zero
+The nerf / smpl_nerf / append_to_nerf / append_smpl_params subset: model_type ->
+nn.Modules with weights drawn from a seeded torch.Generator (flax's Dense init: lecun-normal kernels, zero
 biases). Every other family, SIREN nets and grid encoders are not ported yet.
 """
 from __future__ import annotations
@@ -39,7 +39,12 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE
                       if int(args.human_pose_encoding) else 1)
     dtype = compute_dtype(args)
     generator = torch.Generator().manual_seed(int(seed))
+    # the append families feed the (encoded) pose of two joints, or of all 69,
+    # to both nets as a conditioning prefix
+    additional = {"append_to_nerf": human_pose_dim * 2,
+                  "append_smpl_params": human_pose_dim * 69}.get(args.model_type, 0)
     common = dict(positions_dim=pos_dim, directions_dim=dir_dim,
+                  additional_input_dim=additional,
                   use_directional_input=bool(int(args.use_directional_input)),
                   compute_dtype=dtype, device=device, generator=generator)
     models: Dict[str, torch.nn.Module] = {

@@ -255,7 +255,7 @@ def test_weight_pack_drives_kernel_math_to_plain_version(rng, kw):
                          skips=kw["skips"], use_dir=kw["use_dir"])
     net = _port_net(params, kw["n_layers"], kw["width"], kw["pos_f"], kw["dir_f"],
                     skips=kw["skips"], use_dir=kw["use_dir"], dtype=torch.bfloat16)
-    w, b, table = fused_mlp_v2.pack_weights(pspec, fused_mlp.flatten_params(pspec, net), "cpu")
+    w, b, table = fused_mlp.pack_weights(pspec, fused_mlp.flatten_params(pspec, net), "cpu")
     assert w.dtype == torch.bfloat16 and table.shape == (pspec.n_layers + 5, 4)
     assert all(int(k) % 16 == 0 for k in table[:-2, 2]) and all(int(o) % 8 == 0 for o in table[:, 0])
     x = torch.from_numpy(_raw_rows(rng, 96))
@@ -269,11 +269,11 @@ def test_weight_pack_is_cached_on_the_module_until_weights_change():
     _, params = _jax_net()
     net = _port_net(params, dtype=torch.bfloat16)
     spec = fused_mlp.spec_from_model(net)
-    first = fused_mlp_v2._packed(spec, net, torch.device("cpu"))
-    assert fused_mlp_v2._packed(spec, net, torch.device("cpu")) is first
+    first = fused_mlp.packed(spec, net, torch.device("cpu"))
+    assert fused_mlp.packed(spec, net, torch.device("cpu")) is first
     with torch.no_grad():
         net.rgb_out_layer.bias.add_(1.0)
-    assert fused_mlp_v2._packed(spec, net, torch.device("cpu")) is not first
+    assert fused_mlp.packed(spec, net, torch.device("cpu")) is not first
 
 
 # --------------------------------------------------------------- the modules

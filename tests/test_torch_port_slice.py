@@ -183,7 +183,7 @@ def test_auto_fused_mode_follows_the_jax_resolver():
 
 
 def test_unported_model_types_and_modes_raise():
-    args = port_config.config_parser().parse_args(_argv("append_smpl_params"))
+    args = port_config.config_parser().parse_args(_argv("append_vertex_locations_to_nerf"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         factory.build_models_and_params(args, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
