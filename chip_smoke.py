@@ -15,7 +15,11 @@ unguarded, so that any failure exits non-zero:
      path's shapes, with CUDA-event times (median of 20) of both and the
      least time the card could take for the same work: A (sample_pdf), B
      (fused v2 forward), D (fused v1 forward, the configs/config.txt net with
-     its 621-wide pose prefix) and C (fused v2 backward, seeded cotangent);
+     its 621-wide pose prefix), C (fused v2 backward, seeded cotangent), E
+     (fused expert tiles: seeded sorted-tile plans with padding slots and empty
+     trailing tiles at E=8000, L=413,696 and at E_occ=329, L=57,344, D=42,
+     H=32, O=4, tile 256, in bf16 and in float32) and F (relu-matmul at
+     n=131,072, W=256/512/1024, beside the library call torch.relu(x @ w));
   4. the smpl_nerf render: `cli/render_path` on a 2-view 128x128 circle of a
      full-width configs/arm_angles.txt run (seeded weights, --use_fused_mlp=2,
      --use_pallas=1, 2048-ray batches), with the kernels' launch counts set to
@@ -34,8 +38,28 @@ unguarded, so that any failure exits non-zero:
      the plain path (0, 0); launch counts, finite and falling losses, the two
      paths' losses per step, the saved run rendered through `render_path`,
      ms per step of both paths in turns, and one profiled step;
-  7. one JSON line of per-kernel results;
-  8. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+  7. distillation: `cli.distill.main` on that dataset's val split (2 views of
+     64x64, one 4096-ray chunk each) with a seeded full-width `nerf` teacher
+     (arm_angles.txt widths, --use_fused_mlp=2, so the teacher runs through
+     kernel B): grid 20 (8000 experts), hidden 32, 192 samples, chunk 4096,
+     tile 256, 300 distill steps, 100 + 40 fine-tune steps (cuts: the recipe
+     runs thousands). A random-weight teacher has no density above the tool's
+     default thresholds, so --sigma_thresh and --ess_thresh are quantiles
+     (0.90, 0.97) of the teacher's probed sigma. The tool runs twice on one
+     --out_dir: first without ESS, which fits and saves the fields; then the
+     script bisects --ess_thresh on the fine-tuned field itself until 5-35 % of
+     the cells (after dilation) are occupied, sets the launch counts to 0 and
+     runs the tool again with ESS and ray culling, which resumes the fields
+     and caches and serves through every form, kernel E included. Checks: E
+     launched as often as the chunk count predicts, no overflow, the tool's
+     own kernel-against-culled check (max |drgb| <= 5e-2) and a whole view of
+     both, skip routing + padding + several tiles per expert all present,
+     finite falling losses, scores.json and field.npz read back; ms per view
+     of every serving form; one profiled kernel-path view;
+  8. roofline: `cli.mlp_roofline.main` part `chain` (W=256/512/1024, depth 8,
+     131,072 rows: launches F) and part `fusedmlp` at W=256 (B, C and D);
+  9. one JSON line of per-kernel results;
+ 10. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Tolerances, each with its reason:
   * sample_pdf (kernel A): the kernel's warp-shuffle cumsum adds in another
@@ -54,6 +78,20 @@ Tolerances, each with its reason:
     over all rows, where such flips average out: ||kernel - plain|| <= 3e-2 *
     ||plain||. The kernel adds dW with float32 atomics in an order that
     changes from run to run (~1e-6 relative), far inside that bound.
+  * fused expert tiles (kernel E): in float32 the kernel and its plain
+    version differ only in summation order: max |err| <= 2e-5 * max(1, max
+    |plain|). In bf16 both round the encoding, the weights and the hidden
+    activations to bf16 at the same places, but a float32 sum taken in
+    another order can flip one of those roundings (2^-8 relative), which the
+    second layer carries on: max |err| <= 5e-2 on outputs of order 1.
+  * relu-matmul (kernel F): products of bf16 values are exact in float32 and
+    only the order of the float32 sum differs, so an output can land on the
+    other side of one bf16 rounding (2^-7 relative); next to zero, where relu
+    cuts, the float32 sums themselves differ by their own rounding (up to 1024
+    terms of order 0.1): |err| <= 2^-7 * |plain| + 5e-5 per element.
+  * fused-kernel expert render vs the culled render (same plan, same bf16
+    serving type, the two roundings of `ep.tiles_apply` and of the kernel):
+    max |drgb| <= 5e-2, the tool's own bound.
   * kernel path vs plain path renders: the plain path rounds like flax's
     bf16 Dense (product and bias rounded to bf16), the kernel like the TPU
     kernel (float32 bias, bf16 after each activation), and the fine samples
@@ -64,8 +102,11 @@ Tolerances, each with its reason:
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +123,7 @@ DEVICE = "cuda"
 
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 PDF_R, PDF_K, PDF_F = 2048, 63, 128          # one 2048-ray batch, 64 coarse -> 63 mids
@@ -94,6 +136,13 @@ BWD_DX_MAX, BWD_DX_MEAN, BWD_DW_REL = 0.25, 5e-3, 3e-2
 TRAIN_VIEWS, VAL_VIEWS, TRAIN_RES = 8, 2, 64
 EPOCHS, STEPS_PER_EPOCH = 2, 8
 LOSS_REL, LOSS_STEPS = 0.10, 8
+EXPERT_D, EXPERT_H, EXPERT_TILE, L_POS, L_DIR = 42, 32, 256, 4, 2
+EXPERT_F32_REL, EXPERT_BF16_ABS = 2e-5, 5e-2
+RELU_ROWS, RELU_WIDTHS, RELU_REL, RELU_ABS = 131072, (256, 512, 1024), 2.0 ** -7, 5e-5
+DISTILL_GRID, DISTILL_SAMPLES, DISTILL_CHUNK = 20, 192, 4096
+DISTILL_STEPS, FINETUNE_STEPS, FINETUNE2_STEPS, DISTILL_REPS = 300, 100, 40, 3
+OCCUPIED_SHARE = (0.05, 0.35)   # bisection target; the contract is 2-50 %
+ROOFLINE_REPS, ROOFLINE_DEPTH = 5, 8
 
 
 def fail(msg: str) -> None:
@@ -337,18 +386,145 @@ def phase_fused_bwd(device) -> dict:
             "library_ms": None}
 
 
+def expert_plan_inputs(device, seed: int, n_experts: int, touched: int, mean_count: float,
+                       budget: int):
+    """A seeded sorted-tile plan and its slot inputs: `touched` experts with
+    exponentially spread token counts (so some fill several tiles), as many
+    skipped tokens again, padding slots in every run and empty trailing tiles."""
+    from smpl_nerf_tpu_torch.parallel import ep
+
+    rng = np.random.RandomState(seed)
+    counts = np.maximum(1, rng.exponential(mean_count, touched).astype(np.int64))
+    ids = np.repeat(rng.choice(n_experts, touched, replace=False), counts)
+    ids = np.concatenate([ids, np.full(len(ids) // 2, n_experts)])      # skip-routed tokens
+    rng.shuffle(ids)
+    plan = ep.sorted_tile_plan(torch.as_tensor(ids, device=device), n_experts, budget,
+                               EXPERT_TILE)
+    check(int(plan.overflow.sum()) == 0, "the seeded expert plan overflows its budget")
+    check(not bool(plan.valid[-EXPERT_TILE:].any()) and not bool(plan.valid.all()),
+          "the seeded expert plan has no empty trailing tile or no padding")
+    g = torch.Generator(device=device).manual_seed(seed)
+    local = torch.rand(budget, 3, generator=g, device=device)
+    dirs = torch.randn(budget, 3, generator=g, device=device)
+    dirs = (dirs / dirs.norm(dim=-1, keepdim=True)).contiguous()
+    experts = ep.ExpertMLP(
+        0.3 * torch.randn(n_experts, EXPERT_D, EXPERT_H, generator=g, device=device),
+        0.1 * torch.randn(n_experts, EXPERT_H, generator=g, device=device),
+        0.3 * torch.randn(n_experts, EXPERT_H, 4, generator=g, device=device),
+        0.1 * torch.randn(n_experts, 4, generator=g, device=device))
+    return experts, local, dirs, plan, touched
+
+
+def phase_expert_tiles(device) -> dict:
+    """Kernel E against its plain version at the full field's and the ESS
+    field's stream shapes, in bf16 and float32. The entry's headline numbers
+    are the ESS shape in bf16, which is what the distill path launches."""
+    from smpl_nerf_tpu_torch.ops import expert_tiles
+
+    shapes = {"full": (0, 8000, 1000, 220.0, 413696), "ess": (1, 329, 150, 150.0, 57344)}
+    per_weights = EXPERT_D * EXPERT_H + EXPERT_H + EXPERT_H * 4 + 4
+    variants = {}
+    for shape, (seed, n_experts, touched, mean_count, L) in shapes.items():
+        experts, local, dirs, plan, touched = expert_plan_inputs(device, seed, n_experts, touched,
+                                                                 mean_count, L)
+        n_valid = int(plan.valid.sum())
+        for dtype in (torch.bfloat16, None):
+            kw = dict(l_pos=L_POS, l_dir=L_DIR, tile=EXPERT_TILE, compute_dtype=dtype)
+            args = (experts, local, dirs, plan.valid, plan.tile_expert)
+            with torch.no_grad():
+                got = expert_tiles.expert_tiles_cuda(*args, **kw)
+                want = expert_tiles.expert_tiles_reference(*args, **kw)
+                torch.cuda.synchronize()
+                ms = time_ms(lambda: expert_tiles.expert_tiles_cuda(*args, **kw))
+                plain_ms = time_ms(lambda: expert_tiles.expert_tiles_reference(*args, **kw))
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            bound = (EXPERT_BF16_ABS if dtype is not None else EXPERT_F32_REL * max(1.0, scale))
+            # each slot read and written once, each touched expert's weights read
+            # once; arithmetic only for the slots that hold a token
+            bytes_moved = L * (12 + 12 + 1 + 16) + 4 * (L // EXPERT_TILE) \
+                + 4 * touched * per_weights
+            flops = 2 * n_valid * (EXPERT_D * EXPERT_H + EXPERT_H * 4)
+            bytes_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+            ops_ms = 1e3 * flops / (PEAK_BF16_FLOPS if dtype is not None else PEAK_F32_FLOPS)
+            name = f"{shape}_{'bf16' if dtype is not None else 'f32'}"
+            print(f"kernel E expert_tiles {name}: E={n_experts} L={L} ({n_valid} valid slots, "
+                  f"{touched} experts touched) D={EXPERT_D} H={EXPERT_H} O=4 tile {EXPERT_TILE}: "
+                  f"max|err|={err:.3e} (max|plain| {scale:.3e}, bound {bound:.3e})")
+            print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound by bytes "
+                  f"{bytes_ms:.5f} ms ({bytes_moved} B), by operations {ops_ms:.5f} ms "
+                  f"({flops:.4g} FLOP at the {'bf16' if dtype is not None else 'float32'} peak)")
+            check(bool(torch.isfinite(got).all()), f"expert_tiles {name} gave non-finite outputs")
+            check(float(got[~plan.valid].abs().max()) == 0.0,
+                  f"expert_tiles {name} wrote non-zeros into invalid slots")
+            check(err <= bound, f"expert_tiles {name} disagrees with its plain version")
+            variants[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": max(bytes_ms, ops_ms),
+                              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                              "slots": L, "valid_slots": n_valid, "experts": n_experts}
+    head = variants["ess_bf16"]
+    return {"name": "expert_tiles", "route": "cuda",
+            "source": "smpl_nerf_tpu_torch/csrc/expert_tiles.cu",
+            "replaces": "smpl_nerf_tpu/ops/expert_tiles_pallas.py:68",
+            "max_abs_err": head["max_abs_err"], "parity_ok": True, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None, "variants": variants}
+
+
+def phase_relu_matmul(device) -> dict:
+    """Kernel F against its plain version and the library call, one layer of
+    the roofline chain at each width. The entry's headline is W=256."""
+    from smpl_nerf_tpu_torch.ops import relu_matmul
+
+    by_width = {}
+    for W in RELU_WIDTHS:
+        g = torch.Generator(device=device).manual_seed(W)
+        x = torch.randn(RELU_ROWS, W, generator=g, device=device).to(torch.bfloat16)
+        w = (0.05 * torch.randn(W, W, generator=g, device=device)).to(torch.bfloat16)
+        got = relu_matmul.relu_matmul_cuda(x, w)
+        want = relu_matmul.relu_matmul_reference(x, w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        excess = float((err - RELU_REL * want.float().abs()).max())
+        ms = time_ms(lambda: relu_matmul.relu_matmul_cuda(x, w))
+        plain_ms = time_ms(lambda: relu_matmul.relu_matmul_reference(x, w))
+        library_ms = time_ms(lambda: torch.relu(x @ w))
+        flops = 2 * RELU_ROWS * W * W
+        bytes_moved = 2 * (2 * RELU_ROWS * W + W * W)
+        ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * bytes_moved / PEAK_BYTES_PER_S
+        print(f"kernel F relu_matmul n={RELU_ROWS} W={W} bf16: max|err|={float(err.max()):.3e}, "
+              f"largest |err| - 2^-7 |plain| = {excess:.3e} (bound {RELU_ABS})")
+        print(f"  time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, library torch.relu(x @ w) {library_ms:.4f} ms, bound by bytes "
+              f"{bytes_ms:.5f} ms ({bytes_moved} B), by operations {ops_ms:.5f} ms "
+              f"({flops:.4g} FLOP)")
+        check(bool(torch.isfinite(got.float()).all()), "relu_matmul gave non-finite outputs")
+        check(excess <= RELU_ABS, f"relu_matmul W={W} disagrees with its plain version")
+        by_width[str(W)] = {"max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": max(ops_ms, bytes_ms),
+                            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    head = by_width["256"]
+    return {"name": "relu_matmul", "route": "cuda",
+            "source": "smpl_nerf_tpu_torch/csrc/relu_matmul.cu",
+            "replaces": "scripts/mlp_roofline.py:69", "parity_ok": True, **head,
+            "by_width": by_width}
+
+
 def launch_counts() -> dict:
-    from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2, sample_pdf_cuda
+    from smpl_nerf_tpu_torch.ops import (expert_tiles, fused_mlp, fused_mlp_v2, relu_matmul,
+                                         sample_pdf_cuda)
 
     return {"sample_pdf": sample_pdf_cuda.launches, "fused_mlp_v2_fwd": fused_mlp_v2.launches,
-            "fused_mlp_fwd": fused_mlp.launches, "fused_mlp_v2_bwd": fused_mlp_v2.launches_bwd}
+            "fused_mlp_fwd": fused_mlp.launches, "fused_mlp_v2_bwd": fused_mlp_v2.launches_bwd,
+            "expert_tiles": expert_tiles.launches, "relu_matmul": relu_matmul.launches}
 
 
 def zero_launch_counts() -> None:
-    from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2, sample_pdf_cuda
+    from smpl_nerf_tpu_torch.ops import (expert_tiles, fused_mlp, fused_mlp_v2, relu_matmul,
+                                         sample_pdf_cuda)
 
     sample_pdf_cuda.launches = fused_mlp_v2.launches = 0
     fused_mlp.launches = fused_mlp_v2.launches_bwd = 0
+    expert_tiles.launches = relu_matmul.launches = 0
 
 
 def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=()) -> tuple:
@@ -424,7 +600,9 @@ def phase_render(tmp: str, what: str, config_file: str, kernel_flags: tuple, ext
 KERNEL_SYMBOLS = (("sample_pdf", "sample_pdf_kernel"),
                   ("fused_mlp_v2_fwd", "fused_mlp_v2_fwd_kernel"),
                   ("fused_mlp_fwd", "fused_mlp_fwd_kernel"),
-                  ("fused_mlp_v2_bwd", "fused_mlp_v2_bwd_kernel"))
+                  ("fused_mlp_v2_bwd", "fused_mlp_v2_bwd_kernel"),
+                  ("expert_tiles", "expert_tiles_kernel"),
+                  ("relu_matmul", "relu_matmul_kernel"))
 
 
 def profiled(what: str, fn) -> dict:
@@ -498,10 +676,9 @@ def train_run(tmp: str, dataset_dir: str, name: str, fused: int, pallas: int):
     return solver, log_dir
 
 
-def phase_training(tmp: str, teacher_run: str) -> tuple:
+def phase_training(tmp: str, dataset_dir: str) -> tuple:
     from smpl_nerf_tpu_torch.data import datasets
 
-    dataset_dir = make_dataset(tmp, teacher_run)
     steps = EPOCHS * STEPS_PER_EPOCH
     val_batches = EPOCHS * -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
 
@@ -559,6 +736,215 @@ def phase_training(tmp: str, teacher_run: str) -> tuple:
     return counts, device_ms
 
 
+class Tee(io.StringIO):
+    """Keeps what is printed and passes it on."""
+
+    def __init__(self, stream):
+        super().__init__()
+        self.stream = stream
+
+    def write(self, text):
+        self.stream.write(text)
+        return super().write(text)
+
+
+def heartbeat_losses(log: str, what: str) -> list:
+    return [float(v) for v in re.findall(rf"{what} step \d+/\d+ n?mse ([0-9.eE+-]+|nan|inf)", log)]
+
+
+def phase_distill(tmp: str, dataset_dir: str) -> tuple:
+    """The distilled-expert serving path through `cli.distill.main`; returns
+    (launch counts of the serving run, device ms per launch of a profiled view)."""
+    from smpl_nerf_tpu_torch import config
+    from smpl_nerf_tpu_torch.cli import distill
+    from smpl_nerf_tpu_torch.data import datasets
+    from smpl_nerf_tpu_torch.render import experts as ex
+    from smpl_nerf_tpu_torch.training import checkpoints, factory
+
+    # a seeded full-width static teacher: the arm_angles.txt nets as a `nerf` run
+    parser = config.config_parser()
+    args = parser.parse_args([f"--config={ARM_ANGLES}", "--model_type=nerf", "--use_fused_mlp=2",
+                              "--use_pallas=1"])
+    models, _ = factory.build_models_and_params(args, seed=0, device="cpu")
+    run_dir = os.path.join(tmp, "nerf_teacher_run")
+    checkpoints.save_run(run_dir, {k: m.state_dict() for k, m in models.items()}, args, parser)
+    val_dir = os.path.join(dataset_dir, "val")
+    out_dir = os.path.join(tmp, "distill_out")
+
+    # thresholds from the teacher's own density: a random-weight teacher has
+    # none above the tool's defaults
+    teacher_fn, cfg, _ = distill.build_teacher(run_dir, device=DEVICE)
+    data = datasets.load_dataset(val_dir, "nerf")
+    _, sigma, _, _ = distill.probe_sigma(teacher_fn, data, cfg.near, cfg.far, 64,
+                                         torch.device(DEVICE))
+    sigma_thresh, ess_teacher = (float(np.quantile(sigma, q)) for q in (0.90, 0.97))
+    print(f"distill: teacher sigma on the 64^3 probe: max {sigma.max():.4f}, quantiles 0.90 / "
+          f"0.97 = {sigma_thresh:.4f} / {ess_teacher:.4f} (--sigma_thresh, first --ess_thresh)")
+    check(sigma_thresh > 0.0, "the seeded teacher has no positive density to bound")
+
+    def argv(ess_thresh, *extra):
+        return ["--run_dir", run_dir, "--dataset_dir", val_dir, "--out_dir", out_dir,
+                "--grid", str(DISTILL_GRID), "--hidden", str(EXPERT_H), "--l_pos", str(L_POS),
+                "--l_dir", str(L_DIR), "--steps", str(DISTILL_STEPS),
+                "--samples", str(DISTILL_SAMPLES), "--chunk", str(DISTILL_CHUNK),
+                "--tile", str(EXPERT_TILE), "--time_reps", str(DISTILL_REPS),
+                "--finetune_steps", str(FINETUNE_STEPS),
+                "--finetune2_steps", str(FINETUNE2_STEPS), "--sigma_thresh", str(sigma_thresh),
+                "--ess_thresh", str(ess_thresh), "--device", DEVICE, *extra]
+
+    # first run: fit and save the fields (no ESS yet)
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        fit = distill.main(argv(ess_teacher, "--ess", "0"))
+    distill_loss = heartbeat_losses(tee.getvalue(), "distill")
+    ft_loss = heartbeat_losses(tee.getvalue(), "finetune")
+    print(f"distill: nmse {distill_loss[0]:.4f} -> {distill_loss[-1]:.4f} over {DISTILL_STEPS} "
+          f"steps; fine-tune pixel mse {ft_loss[0]:.6f} -> {ft_loss[-1]:.6f}")
+    check(bool(np.isfinite(distill_loss + ft_loss).all()), "distill: non-finite loss")
+    check(np.mean(distill_loss[-3:]) < distill_loss[0], "distill: the distill loss did not fall")
+    check(np.mean(ft_loss[-3:]) < np.mean(ft_loss[:3]), "distill: the fine-tune loss did not fall")
+    check(fit["finetune"]["overflow"] == 0 and fit["finetune2"]["overflow"] == 0,
+          "distill: fine-tune samples overflowed their budget")
+
+    # --ess_thresh on the fine-tuned field itself: bisect until 5-35 % of the
+    # cells are occupied after dilation
+    field = ex.load_field(os.path.join(out_dir, "field_ft2.npz"), DEVICE)
+    probe = torch.rand(200000, 3, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    probe = field.aabb_min + probe * (field.aabb_max - field.aabb_min)
+    with torch.no_grad():
+        field_sigma = ex.expert_raw_fn(field, probe, torch.nn.functional.normalize(
+            torch.ones_like(probe), dim=-1))[:, 3]
+    lo, hi = float(field_sigma.min()), float(field_sigma.max())
+    for _ in range(40):
+        ess_thresh = 0.5 * (lo + hi)
+        occ = ex.dilate_occupancy(ex.cell_occupancy(field, 3, ess_thresh), DISTILL_GRID)
+        share = float(occ.mean())
+        if share < OCCUPIED_SHARE[0]:
+            hi = ess_thresh
+        elif share > OCCUPIED_SHARE[1]:
+            lo = ess_thresh
+        else:
+            break
+    print(f"distill: --ess_thresh {ess_thresh:.5f} leaves {int(occ.sum())}/{occ.size} cells "
+          f"occupied after dilation ({100 * share:.1f} %)")
+    check(0.02 <= share <= 0.5, "distill: no threshold leaves 2-50 % of the cells occupied")
+
+    # the serving run: resumes the fields and caches, then every serving form
+    tee = Tee(sys.stdout)
+    zero_launch_counts()
+    with contextlib.redirect_stdout(tee):
+        out = distill.main(argv(ess_thresh, "--ess", "1", "--ray_cull", "1"))
+    counts = launch_counts()
+    log = tee.getvalue()
+    chunks_per_view = -(-data.h * data.w // DISTILL_CHUNK)
+    rc_chunks = out["ray_cull"]["stream"] // DISTILL_CHUNK
+    expected = 1 + (DISTILL_REPS + 1) * (chunks_per_view + rc_chunks)
+    print(f"distill: cli.distill.main grid {DISTILL_GRID}^3 hidden {EXPERT_H}, "
+          f"{DISTILL_SAMPLES} samples, chunk {DISTILL_CHUNK}, tile {EXPERT_TILE}: launches "
+          f"{counts}; kernel E expected 1 check + {DISTILL_REPS + 1} x ({chunks_per_view} + "
+          f"{rc_chunks}) timed chunks = {expected}")
+    check(counts["expert_tiles"] == expected,
+          f"distill: expert_tiles launched {counts['expert_tiles']} times, expected {expected}")
+    check(counts["fused_mlp_v2_fwd"] > 0, "distill: the teacher did not run through kernel B")
+    check(log.count("resumed field from") == 3 and "teacher render cached" in log,
+          "distill: the serving run did not resume the fields and the teacher render")
+    ess = out["ess"]
+    check(ess["occupied_cells"] == int(occ.sum()), "distill: the tool's occupancy differs")
+    check(ess["kernel_check_max_abs_rgb"] <= distill.KERNEL_CHECK_MAX,
+          "distill: fused-kernel render disagrees with the culled render")
+    with open(os.path.join(out_dir, "scores.json")) as fh:
+        check(json.load(fh)["latency_ms"] == out["latency_ms"], "distill: scores.json differs")
+    back = ex.load_field(os.path.join(out_dir, "field.npz"), DEVICE)
+    check(tuple(back.experts.w0.shape) == (DISTILL_GRID ** 3, EXPERT_D, EXPERT_H)
+          and all(bool(torch.isfinite(w).all()) for w in back.experts),
+          "distill: field.npz does not read back")
+    for leg in ("teacher", "distilled", "distill_gap"):
+        check(all(np.isfinite(v) for v in out[leg].values()), f"distill: non-finite {leg} scores")
+    lat = out["latency_ms"]
+    print(f"distill: ms per {data.h}x{data.w} view of {DISTILL_SAMPLES} samples (host clock, "
+          f"synchronised, median of {DISTILL_REPS}): teacher {lat['teacher']}, tiled "
+          f"{lat['tiled']}, ESS-culled {lat['ess_culled']}, ESS-tiled {lat['ess_tiled']}, "
+          f"ESS-fused-kernel {lat['ess_fused_kernel']}, ESS-bucketed {lat['ess_bucketed']}, "
+          f"tile sweep {lat['ess_tile_sweep']}; ray-culled {out['ray_cull']['latency_ms']}")
+
+    # what the kernel saw: skip routing, padding and several tiles per expert
+    z = np.linspace(cfg.near, cfg.far, DISTILL_SAMPLES, dtype=np.float32)
+    lo_np, hi_np = field.aabb_min.cpu().numpy(), field.aabb_max.cpu().numpy()
+    n_samples = DISTILL_CHUNK * DISTILL_SAMPLES
+    routed = padded = several = n_chunks = 0
+    for per_expert in distill._chunk_counts(data, lo_np, hi_np, DISTILL_GRID, z, DISTILL_CHUNK,
+                                            occupied=occ):
+        touched = per_expert[per_expert > 0]
+        n_chunks += 1
+        routed += int(touched.sum())
+        padded += int((touched % EXPERT_TILE > 0).sum())
+        several += int((touched > EXPERT_TILE).sum())
+    print(f"distill: over {n_chunks} chunks, {routed} of {n_chunks * n_samples} samples routed "
+          f"to an expert (the rest skipped), {padded} padded runs, {several} runs of several "
+          f"tiles, budget {ess['budget']} slots per chunk")
+    check(0 < routed < n_chunks * n_samples and padded > 0 and several > 0,
+          "distill: skip routing, padding and several tiles per expert did not all occur")
+
+    # one whole view through the kernel path and through the culled path
+    cfield = ex.compact_field(field, occ)
+    n = data.h * data.w
+    o = torch.as_tensor(data.origins[:n], device=DEVICE)
+    d = torch.as_tensor(data.directions[:n], device=DEVICE)
+    z_row = torch.as_tensor(z, device=DEVICE)
+
+    @torch.no_grad()
+    def view(use_kernel):
+        rgb, over = [], 0
+        for lo_ in range(0, n, DISTILL_CHUNK):
+            oc, dc = o[lo_:lo_ + DISTILL_CHUNK], d[lo_:lo_ + DISTILL_CHUNK]
+            outs, n_over = ex.render_rays_with_experts_culled(
+                cfield, oc, dc, z_row.expand(oc.shape[0], -1), ess["budget"], EXPERT_TILE,
+                compute_dtype=torch.bfloat16, use_kernel=use_kernel)
+            rgb.append(outs.rgb)
+            over += int(n_over)
+        return torch.cat(rgb), over
+
+    kernel_rgb, kernel_over = view(True)
+    culled_rgb, culled_over = view(False)
+    diff = float((kernel_rgb - culled_rgb).abs().max())
+    print(f"distill: one view, fused-kernel path vs culled path: max|drgb|={diff:.3e} "
+          f"(bound {distill.KERNEL_CHECK_MAX}), n_overflow {kernel_over} and {culled_over}")
+    check(kernel_over == 0 and culled_over == 0, "distill: samples overflowed the ESS budget")
+    check(bool(torch.isfinite(kernel_rgb).all()) and diff <= distill.KERNEL_CHECK_MAX,
+          "distill: the fused-kernel view disagrees with the culled view")
+    device_ms = profiled("one ESS fused-kernel view of the distilled field", lambda: view(True))
+    return counts, device_ms
+
+
+def phase_roofline() -> dict:
+    """`cli.mlp_roofline.main`: part `chain` launches F, part `fusedmlp` at
+    W=256 launches B, C and D. Returns the launch counts."""
+    from smpl_nerf_tpu_torch.cli import mlp_roofline
+
+    zero_launch_counts()
+    chain = mlp_roofline.main(["--part", "chain", "--reps", str(ROOFLINE_REPS),
+                               "--depth", str(ROOFLINE_DEPTH), "--device", DEVICE])
+    fused = mlp_roofline.main(["--part", "fusedmlp", "--widths", "256",
+                               "--reps", str(ROOFLINE_REPS), "--device", DEVICE])
+    counts = launch_counts()
+    # per width: one chain for the value check, 2 warm-up and ROOFLINE_REPS timed
+    expected = len(RELU_WIDTHS) * ROOFLINE_DEPTH * (1 + 2 + ROOFLINE_REPS)
+    print(f"roofline: cli.mlp_roofline.main chain + fusedmlp W=256: launches {counts} "
+          f"(kernel F expected {expected})")
+    check(counts["relu_matmul"] == expected,
+          f"roofline: relu_matmul launched {counts['relu_matmul']} times, expected {expected}")
+    check([r["impl"] for r in fused] == ["plain", "fused_v1", "fused_v2"]
+          and not any("refused" in r for r in fused), "roofline: a fused kernel refused W=256")
+    for r in chain + fused:
+        check(r["device"] == "cuda" and r["card"], "roofline: a record lacks its card")
+    for r in chain:
+        check(r["ms"] > 0 and r["max_abs_diff_kernel_library"] < 0.5,
+              f"roofline: chain W={r['width']} kernel and library disagree")
+    for name in ("fused_mlp_v2_fwd", "fused_mlp_v2_bwd", "fused_mlp_fwd"):
+        check(counts[name] > 0, f"roofline: part fusedmlp did not launch {name}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -571,7 +957,7 @@ def main() -> None:
     card = phase_card()
     phase_build()
     kernels = [phase_sample_pdf(device), phase_fused_mlp(device), phase_fused_mlp_v1(device),
-               phase_fused_bwd(device)]
+               phase_fused_bwd(device), phase_expert_tiles(device), phase_relu_matmul(device)]
     paths, device_ms = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         paths["smpl_nerf_render"], kernel_run = phase_render(
@@ -586,7 +972,10 @@ def main() -> None:
         device_ms["append_render"] = profiled(
             f"kernel-path append_smpl_params render of {VIEWS} views",
             lambda: render(append_run, out))
-        paths["train"], device_ms["train"] = phase_training(tmp, kernel_run)
+        dataset_dir = make_dataset(tmp, kernel_run)
+        paths["train"], device_ms["train"] = phase_training(tmp, dataset_dir)
+        paths["distill"], device_ms["distill"] = phase_distill(tmp, dataset_dir)
+        paths["roofline"] = phase_roofline()
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -15,7 +15,13 @@ has the same roundings; besides, a ReLU mask flips where the two forwards put
 an activation on either side of 0, which moves one row's dX by a whole term
 (bounded by max and by mean), while every dW and db is a sum over all rows
 and is held by relative norm. Its float32 atomics make dW and db differ in
-the last bits from run to run.
+the last bits from run to run. Kernel E in float32 differs from its plain
+version only in summation order (2e-5, the JAX package's bound for its
+kernel); in bf16 one rounding can flip and the second layer carries it
+(5e-2 absolute on outputs of order 1). Kernel F multiplies bf16 values
+exactly and sums in float32 in another order, so an output can land on the
+other side of one bf16 rounding (2^-7 relative); next to zero, where relu
+cuts, the float32 sums themselves differ by their own rounding (5e-5).
 """
 import numpy as np
 import pytest
@@ -24,8 +30,11 @@ import torch
 from smpl_nerf_tpu_torch import config
 from smpl_nerf_tpu_torch.core import sampling
 from smpl_nerf_tpu_torch.models import RenderRayNet
-from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2, sample_pdf_cuda
+from smpl_nerf_tpu_torch.ops import (expert_tiles, fused_mlp, fused_mlp_v2, relu_matmul,
+                                     sample_pdf_cuda)
+from smpl_nerf_tpu_torch.parallel import ep
 from smpl_nerf_tpu_torch.pipelines import RenderConfig, build_pipeline
+from smpl_nerf_tpu_torch.render import experts as ex
 from smpl_nerf_tpu_torch.training import factory, solver
 
 PDF_ATOL = 2e-4
@@ -410,3 +419,193 @@ def test_sample_pdf_kernel_under_grad_with_detached_inputs(gen, cuda):
     assert sample_pdf_cuda.launches == before + 1
     assert not z_all.requires_grad and weights.grad is None
     assert torch.allclose(dirs.grad, z_all.sum(-1, keepdim=True).expand(50, 3))
+
+
+# ------------------------------------------------------------------- kernel E
+
+def _expert_field(gen, cuda, grid, hidden, l_pos, l_dir):
+    E, D = grid ** 3, ex.encoded_dim(l_pos, l_dir)
+    ws = (gen.randn(E, D, hidden) * 0.3, gen.randn(E, hidden) * 0.1,
+          gen.randn(E, hidden, 4) * 0.3, gen.randn(E, 4) * 0.1)
+    experts = ep.ExpertMLP(*(torch.tensor(w.astype(np.float32), device=cuda) for w in ws))
+    return ex.ExpertField(experts, torch.tensor([-1.0, -0.9, -1.1], device=cuda),
+                          torch.tensor([1.0, 1.1, 0.9], device=cuda), grid, l_pos, l_dir)
+
+
+def _expert_points(gen, n, cuda, span=1.2):
+    pos = torch.tensor(gen.uniform(-span, span, (n, 3)).astype(np.float32), device=cuda)
+    d = gen.randn(n, 3).astype(np.float32)
+    return pos, torch.tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), device=cuda)
+
+
+@pytest.mark.parametrize("tile,budget,hidden,l_pos,l_dir", [
+    (256, 8192, 32, 4, 2),      # the serving shape: D=42, H=32, tile 256
+    (8, 2048, 16, 3, 1),        # the JAX tests' small tiles
+    (32, 4096, 16, 3, 1),
+    (64, 4096, 40, 4, 2),       # H not a multiple of 32: two hidden chunks
+    (512, 16384, 32, 10, 4),    # several 128-row blocks per tile, D=90
+])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_expert_tiles_kernel_matches_plain(gen, cuda, tile, budget, hidden, l_pos, l_dir, dtype):
+    field = _expert_field(gen, cuda, 3, hidden, l_pos, l_dir)
+    pos, dirs = _expert_points(gen, 3000, cuda)
+    ids, n_route = ex._route(field, pos)
+    plan = ep.sorted_tile_plan(ids, n_route, budget, tile)
+    assert not bool(plan.overflow.any()) and not bool(plan.valid[-tile:].any())
+    args = (field.experts, ex._local_coords(field, pos[plan.tok]).contiguous(),
+            dirs[plan.tok].contiguous(), plan.valid, plan.tile_expert)
+    kw = dict(l_pos=l_pos, l_dir=l_dir, tile=tile, compute_dtype=dtype)
+    before = expert_tiles.launches
+    got = expert_tiles.expert_tiles_forward(*args, **kw)
+    want = expert_tiles.expert_tiles_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert expert_tiles.launches == before + 1
+    assert bool(torch.isfinite(got).all()) and float(got[~plan.valid].abs().max()) == 0.0
+    err = float((got - want).abs().max())
+    if dtype is None:
+        assert err <= 2e-5 * max(1.0, float(want.abs().max()))
+        tiled = ep.tiles_apply(field.experts, ex._encode(field, pos[plan.tok], dirs[plan.tok]),
+                               plan)
+        assert float((got - tiled).abs().max()) <= 1e-4 * max(1.0, float(tiled.abs().max()))
+    else:
+        assert err <= 5e-2
+
+
+def test_expert_tiles_kernel_reads_no_expert_outside_the_table(gen, cuda):
+    field = _expert_field(gen, cuda, 2, 32, 4, 2)
+    L, tile = 1024, 256
+    local = torch.rand(L, 3, device=cuda)
+    valid = torch.ones(L, dtype=torch.bool, device=cuda)
+    valid[512:] = False
+    tile_expert = torch.tensor([0, 7, 99, -3], dtype=torch.int32, device=cuda)   # clamped
+    got = expert_tiles.expert_tiles_forward(field.experts, local, local, valid, tile_expert,
+                                            l_pos=4, l_dir=2, tile=tile)
+    want = expert_tiles.expert_tiles_reference(field.experts, local, local, valid,
+                                               tile_expert.clamp(0, 7), l_pos=4, l_dir=2,
+                                               tile=tile)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert float(got[512:].abs().max()) == 0.0
+
+
+def test_expert_tiles_wrapper_checks_its_inputs_and_refuses_a_gradient(gen, cuda):
+    field = _expert_field(gen, cuda, 2, 16, 3, 1)
+    local = torch.rand(64, 3, device=cuda)
+    valid = torch.ones(64, dtype=torch.bool, device=cuda)
+    te = torch.zeros(2, dtype=torch.int32, device=cuda)
+    kw = dict(l_pos=3, l_dir=1, tile=32)
+    expert_tiles.expert_tiles_forward(field.experts, local, local, valid, te, **kw)
+    with pytest.raises(ValueError, match="multiple of tile"):
+        expert_tiles.expert_tiles_forward(field.experts, local[:60], local[:60], valid[:60], te,
+                                          **kw)
+    with pytest.raises(ValueError, match="tile_expert"):
+        expert_tiles.expert_tiles_forward(field.experts, local, local, valid, te.long(), **kw)
+    with pytest.raises(ValueError, match="local"):
+        expert_tiles.expert_tiles_forward(field.experts, local.double(), local, valid, te, **kw)
+    with pytest.raises(ValueError, match="encoding"):
+        expert_tiles.expert_tiles_forward(field.experts, local, local, valid, te, l_pos=4,
+                                          l_dir=1, tile=32)
+    with pytest.raises(ValueError, match="w0"):
+        expert_tiles.expert_tiles_forward(ep.ExpertMLP(*(w.cpu() for w in field.experts)), local,
+                                          local, valid, te, **kw)
+    trainable = ep.ExpertMLP(*(w.clone().requires_grad_(True) for w in field.experts))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        expert_tiles.expert_tiles_forward(trainable, local, local, valid, te, **kw)
+    with torch.no_grad():
+        expert_tiles.expert_tiles_forward(trainable, local, local, valid, te, **kw)
+
+
+@pytest.mark.parametrize("form", ["tiled", "culled"])
+def test_expert_serving_through_the_kernel_matches_the_tiled_path_on_cuda(gen, cuda, form):
+    field = _expert_field(gen, cuda, 3, 32, 4, 2)
+    occ = gen.uniform(size=27) < 0.5
+    cfield = ex.compact_field(field, occ)
+    R, S = 256, 48
+    o = torch.zeros(R, 3, device=cuda)
+    o[:, 2] = -2.0
+    d = torch.tensor(gen.randn(R, 3).astype(np.float32) * 0.35, device=cuda)
+    d[:, 2] += 1.0
+    z = torch.linspace(0.5, 4.0, S, device=cuda).expand(R, S)
+    render = (ex.render_rays_with_experts_tiled if form == "tiled"
+              else ex.render_rays_with_experts_culled)
+    before = expert_tiles.launches
+    with torch.no_grad():
+        got, over_k = render(cfield, o, d, z, 8192, 64, use_kernel=True)
+        want, over_p = render(cfield, o, d, z, 8192, 64)
+    assert expert_tiles.launches == before + 1 and int(over_k) == int(over_p) == 0
+    assert float((got.rgb - want.rgb).abs().max()) <= 1e-4
+    assert float(got.acc.max()) > 0.05
+
+
+# ------------------------------------------------------------------- kernel F
+
+@pytest.mark.parametrize("n,K,N", [(131072, 256, 256), (1000, 64, 128), (4096, 512, 512),
+                                   (300, 1024, 1024), (1, 32, 128)])
+def test_relu_matmul_kernel_matches_plain(gen, cuda, n, K, N):
+    x = torch.tensor(gen.randn(n, K).astype(np.float32), device=cuda).to(torch.bfloat16)
+    w = torch.tensor((0.05 * gen.randn(K, N)).astype(np.float32), device=cuda).to(torch.bfloat16)
+    before = relu_matmul.launches
+    got = relu_matmul.relu_matmul(x, w)
+    want = relu_matmul.relu_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    assert relu_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n, N)
+    err = (got.float() - want.float()).abs()
+    assert float((err - 2.0 ** -7 * want.float().abs()).max()) <= 5e-5
+    assert float(got.float().min()) == 0.0 and float(got.float().max()) > 0.0
+
+
+def test_relu_matmul_wrapper_checks_its_inputs(cuda):
+    x = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(64, 128, dtype=torch.bfloat16, device=cuda)
+    relu_matmul.relu_matmul(x, w)
+    with pytest.raises(TypeError):
+        relu_matmul.relu_matmul(x.float(), w.float())
+    with pytest.raises(ValueError, match="multiple of"):
+        relu_matmul.relu_matmul(x, w[:, :96].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        relu_matmul.relu_matmul(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        relu_matmul.relu_matmul(x, w.cpu())
+    with pytest.raises(ValueError, match="bad shapes"):
+        relu_matmul.relu_matmul(x[:, :32].contiguous(), w)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        relu_matmul.relu_matmul(x, w.clone().requires_grad_(True))
+
+
+def test_finetune_on_cuda_resumes_from_its_checkpoint(gen, cuda, tmp_path, monkeypatch):
+    """Weights, Adam moments and the CUDA generator's state come back from the
+    checkpoint; gradients of gathered weights are summed with atomics, so the
+    resumed run matches the whole one to float32 rounding, not bit for bit."""
+    field = _expert_field(gen, cuda, 2, 8, 2, 1)
+    o = np.zeros((256, 3), np.float32)
+    o[:, 2] = -2.0
+    d = gen.randn(256, 3).astype(np.float32) * 0.35 + np.float32([0, 0, 1])
+    rgb = gen.uniform(0, 1, (256, 3)).astype(np.float32)
+    kw = dict(near=0.5, far=4.0, n_samples=12, budget=2048, tile=8, batch=64, lr=2e-3, n_steps=6)
+
+    def seeded():
+        return torch.Generator(device=cuda).manual_seed(1)
+
+    whole, whole_loss, over = ex.finetune_experts(field, o, d, rgb, seeded(), **kw)
+    assert over == 0 and np.isfinite(whole_loss)
+    part = str(tmp_path / "ft.part.npz")
+    real_step, calls = ex.finetune_step, []
+
+    def cutting_step(*a, **k):
+        if len(calls) == 3:
+            raise KeyboardInterrupt
+        calls.append(1)
+        return real_step(*a, **k)
+
+    monkeypatch.setattr(ex, "finetune_step", cutting_step)
+    with pytest.raises(KeyboardInterrupt):
+        ex.finetune_experts(field, o, d, rgb, seeded(), checkpoint_path=part,
+                            checkpoint_every=3, **kw)
+    monkeypatch.setattr(ex, "finetune_step", real_step)
+    resumed, resumed_loss, _ = ex.finetune_experts(
+        field, o, d, rgb, torch.Generator(device=cuda).manual_seed(99), checkpoint_path=part,
+        checkpoint_every=3, **kw)
+    assert resumed_loss == pytest.approx(whole_loss, rel=1e-4)
+    for a, b in zip(resumed.experts, whole.experts):
+        assert float((a - b).abs().max()) <= 1e-5
