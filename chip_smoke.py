@@ -18,8 +18,10 @@ unguarded, so that any failure exits non-zero:
      its 621-wide pose prefix), C (fused v2 backward, seeded cotangent), E
      (fused expert tiles: seeded sorted-tile plans with padding slots and empty
      trailing tiles at E=8000, L=413,696 and at E_occ=329, L=57,344, D=42,
-     H=32, O=4, tile 256, in bf16 and in float32) and F (relu-matmul at
-     n=131,072, W=256/512/1024, beside the library call torch.relu(x @ w));
+     H=32, O=4, tile 256, in bf16 and in float32; its headline numbers come
+     from phase 7, on the plan of a chunk that the distill path serves) and F
+     (relu-matmul at n=131,072, W=256/512/1024, beside the library call
+     torch.relu(x @ w));
   4. the smpl_nerf render: `cli/render_path` on a 2-view 128x128 circle of a
      full-width configs/arm_angles.txt run (seeded weights, --use_fused_mlp=2,
      --use_pallas=1, 2048-ray batches), with the kernels' launch counts set to
@@ -54,10 +56,15 @@ unguarded, so that any failure exits non-zero:
      launched as often as the chunk count predicts, no overflow, the tool's
      own kernel-against-culled check (max |drgb| <= 5e-2) and a whole view of
      both, skip routing + padding + several tiles per expert all present,
-     finite falling losses, scores.json and field.npz read back; ms per view
-     of every serving form; one profiled kernel-path view;
+     finite falling losses (the histories the tool returns), scores.json and
+     field.npz read back; ms per view of every serving form; one profiled
+     kernel-path view; and kernel E against its plain version, timed, on the
+     sorted-tile plan of view 0's chunk through the compact field (bf16, the
+     serving type, and float32): the kernels line's numbers for E;
   8. roofline: `cli.mlp_roofline.main` part `chain` (W=256/512/1024, depth 8,
-     131,072 rows: launches F) and part `fusedmlp` at W=256 (B, C and D);
+     131,072 rows: launches F; the kernel chain within one bf16 step of the
+     largest output of the library chain, and not dead) and part
+     `fusedmlp` at W=256 (B, C and D);
   9. one JSON line of per-kernel results;
  10. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -88,7 +95,10 @@ Tolerances, each with its reason:
     only the order of the float32 sum differs, so an output can land on the
     other side of one bf16 rounding (2^-7 relative); next to zero, where relu
     cuts, the float32 sums themselves differ by their own rounding (up to 1024
-    terms of order 0.1): |err| <= 2^-7 * |plain| + 5e-5 per element.
+    terms of order 0.1): |err| <= 2^-7 * |plain| + 5e-5 per element. Over the
+    roofline script's 8-layer chain the kernel is held against the library
+    call: max |kernel - library| <= 2^-7 * max |output| (they have agreed bit
+    for bit so far), and the chain's mean |output| must be above 0.
   * fused-kernel expert render vs the culled render (same plan, same bf16
     serving type, the two roundings of `ep.tiles_apply` and of the kernel):
     max |drgb| <= 5e-2, the tool's own bound.
@@ -102,11 +112,8 @@ Tolerances, each with its reason:
 """
 from __future__ import annotations
 
-import contextlib
-import io
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -412,62 +419,71 @@ def expert_plan_inputs(device, seed: int, n_experts: int, touched: int, mean_cou
         0.1 * torch.randn(n_experts, EXPERT_H, generator=g, device=device),
         0.3 * torch.randn(n_experts, EXPERT_H, 4, generator=g, device=device),
         0.1 * torch.randn(n_experts, 4, generator=g, device=device))
-    return experts, local, dirs, plan, touched
+    return experts, local, dirs, plan
+
+
+def expert_tiles_variant(name: str, experts, local, dirs, plan, dtype) -> dict:
+    """Kernel E against its plain version on one plan's slots: parity, CUDA-event
+    times of both, and the bound from what this plan needs."""
+    from smpl_nerf_tpu_torch.ops import expert_tiles
+
+    L, n_experts = plan.valid.shape[0], experts.w0.shape[0]
+    n_valid = int(plan.valid.sum())
+    used = plan.valid.view(-1, EXPERT_TILE).any(-1)
+    touched = int(torch.unique(plan.tile_expert[used]).numel())
+    kw = dict(l_pos=L_POS, l_dir=L_DIR, tile=EXPERT_TILE, compute_dtype=dtype)
+    args = (experts, local, dirs, plan.valid, plan.tile_expert)
+    with torch.no_grad():
+        got = expert_tiles.expert_tiles_cuda(*args, **kw)
+        want = expert_tiles.expert_tiles_reference(*args, **kw)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: expert_tiles.expert_tiles_cuda(*args, **kw))
+        plain_ms = time_ms(lambda: expert_tiles.expert_tiles_reference(*args, **kw))
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    bound = EXPERT_BF16_ABS if dtype is not None else EXPERT_F32_REL * max(1.0, scale)
+    # every slot's mask read and output written; position and direction read
+    # only for the slots that hold a token; the tile table; each touched
+    # expert's weights read once. Arithmetic only for the slots that hold a token
+    per_weights = EXPERT_D * EXPERT_H + EXPERT_H + EXPERT_H * 4 + 4
+    bytes_moved = L * (1 + 16) + n_valid * (12 + 12) + 4 * (L // EXPERT_TILE) \
+        + 4 * touched * per_weights
+    flops = 2 * n_valid * (EXPERT_D * EXPERT_H + EXPERT_H * 4)
+    bytes_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * flops / (PEAK_BF16_FLOPS if dtype is not None else PEAK_F32_FLOPS)
+    print(f"kernel E expert_tiles {name}: E={n_experts} L={L} ({n_valid} valid slots, "
+          f"{touched} experts touched) D={EXPERT_D} H={EXPERT_H} O=4 tile {EXPERT_TILE}: "
+          f"max|err|={err:.3e} (max|plain| {scale:.3e}, bound {bound:.3e})")
+    print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound by bytes "
+          f"{bytes_ms:.5f} ms ({bytes_moved} B), by operations {ops_ms:.5f} ms "
+          f"({flops:.4g} FLOP at the {'bf16' if dtype is not None else 'float32'} peak)")
+    check(bool(torch.isfinite(got).all()), f"expert_tiles {name} gave non-finite outputs")
+    check(float(got[~plan.valid].abs().max()) == 0.0,
+          f"expert_tiles {name} wrote non-zeros into invalid slots")
+    check(err <= bound, f"expert_tiles {name} disagrees with its plain version")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "slots": L, "valid_slots": n_valid, "experts": n_experts,
+            "experts_touched": touched}
 
 
 def phase_expert_tiles(device) -> dict:
-    """Kernel E against its plain version at the full field's and the ESS
-    field's stream shapes, in bf16 and float32. The entry's headline numbers
-    are the ESS shape in bf16, which is what the distill path launches."""
-    from smpl_nerf_tpu_torch.ops import expert_tiles
-
+    """Kernel E against its plain version at two seeded stream shapes (the
+    full 8000-expert field and a small compact field), in bf16 and float32.
+    The entry's headline numbers come later, from the plan that the distill
+    path itself launches (`phase_distill`)."""
     shapes = {"full": (0, 8000, 1000, 220.0, 413696), "ess": (1, 329, 150, 150.0, 57344)}
-    per_weights = EXPERT_D * EXPERT_H + EXPERT_H + EXPERT_H * 4 + 4
     variants = {}
     for shape, (seed, n_experts, touched, mean_count, L) in shapes.items():
-        experts, local, dirs, plan, touched = expert_plan_inputs(device, seed, n_experts, touched,
-                                                                 mean_count, L)
-        n_valid = int(plan.valid.sum())
+        experts, local, dirs, plan = expert_plan_inputs(device, seed, n_experts, touched,
+                                                        mean_count, L)
         for dtype in (torch.bfloat16, None):
-            kw = dict(l_pos=L_POS, l_dir=L_DIR, tile=EXPERT_TILE, compute_dtype=dtype)
-            args = (experts, local, dirs, plan.valid, plan.tile_expert)
-            with torch.no_grad():
-                got = expert_tiles.expert_tiles_cuda(*args, **kw)
-                want = expert_tiles.expert_tiles_reference(*args, **kw)
-                torch.cuda.synchronize()
-                ms = time_ms(lambda: expert_tiles.expert_tiles_cuda(*args, **kw))
-                plain_ms = time_ms(lambda: expert_tiles.expert_tiles_reference(*args, **kw))
-            err, scale = float((got - want).abs().max()), float(want.abs().max())
-            bound = (EXPERT_BF16_ABS if dtype is not None else EXPERT_F32_REL * max(1.0, scale))
-            # each slot read and written once, each touched expert's weights read
-            # once; arithmetic only for the slots that hold a token
-            bytes_moved = L * (12 + 12 + 1 + 16) + 4 * (L // EXPERT_TILE) \
-                + 4 * touched * per_weights
-            flops = 2 * n_valid * (EXPERT_D * EXPERT_H + EXPERT_H * 4)
-            bytes_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
-            ops_ms = 1e3 * flops / (PEAK_BF16_FLOPS if dtype is not None else PEAK_F32_FLOPS)
             name = f"{shape}_{'bf16' if dtype is not None else 'f32'}"
-            print(f"kernel E expert_tiles {name}: E={n_experts} L={L} ({n_valid} valid slots, "
-                  f"{touched} experts touched) D={EXPERT_D} H={EXPERT_H} O=4 tile {EXPERT_TILE}: "
-                  f"max|err|={err:.3e} (max|plain| {scale:.3e}, bound {bound:.3e})")
-            print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound by bytes "
-                  f"{bytes_ms:.5f} ms ({bytes_moved} B), by operations {ops_ms:.5f} ms "
-                  f"({flops:.4g} FLOP at the {'bf16' if dtype is not None else 'float32'} peak)")
-            check(bool(torch.isfinite(got).all()), f"expert_tiles {name} gave non-finite outputs")
-            check(float(got[~plan.valid].abs().max()) == 0.0,
-                  f"expert_tiles {name} wrote non-zeros into invalid slots")
-            check(err <= bound, f"expert_tiles {name} disagrees with its plain version")
-            variants[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": max(bytes_ms, ops_ms),
-                              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                              "slots": L, "valid_slots": n_valid, "experts": n_experts}
-    head = variants["ess_bf16"]
+            variants[name] = expert_tiles_variant(name, experts, local, dirs, plan, dtype)
     return {"name": "expert_tiles", "route": "cuda",
             "source": "smpl_nerf_tpu_torch/csrc/expert_tiles.cu",
             "replaces": "smpl_nerf_tpu/ops/expert_tiles_pallas.py:68",
-            "max_abs_err": head["max_abs_err"], "parity_ok": True, "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": None, "variants": variants}
+            "parity_ok": True, "library_ms": None, "variants": variants}
 
 
 def phase_relu_matmul(device) -> dict:
@@ -736,25 +752,10 @@ def phase_training(tmp: str, dataset_dir: str) -> tuple:
     return counts, device_ms
 
 
-class Tee(io.StringIO):
-    """Keeps what is printed and passes it on."""
-
-    def __init__(self, stream):
-        super().__init__()
-        self.stream = stream
-
-    def write(self, text):
-        self.stream.write(text)
-        return super().write(text)
-
-
-def heartbeat_losses(log: str, what: str) -> list:
-    return [float(v) for v in re.findall(rf"{what} step \d+/\d+ n?mse ([0-9.eE+-]+|nan|inf)", log)]
-
-
 def phase_distill(tmp: str, dataset_dir: str) -> tuple:
     """The distilled-expert serving path through `cli.distill.main`; returns
-    (launch counts of the serving run, device ms per launch of a profiled view)."""
+    (launch counts of the serving run, device ms per launch of a profiled view,
+    kernel E against its plain version on the plan of one served chunk)."""
     from smpl_nerf_tpu_torch import config
     from smpl_nerf_tpu_torch.cli import distill
     from smpl_nerf_tpu_torch.data import datasets
@@ -793,11 +794,13 @@ def phase_distill(tmp: str, dataset_dir: str) -> tuple:
                 "--ess_thresh", str(ess_thresh), "--device", DEVICE, *extra]
 
     # first run: fit and save the fields (no ESS yet)
-    tee = Tee(sys.stdout)
-    with contextlib.redirect_stdout(tee):
-        fit = distill.main(argv(ess_teacher, "--ess", "0"))
-    distill_loss = heartbeat_losses(tee.getvalue(), "distill")
-    ft_loss = heartbeat_losses(tee.getvalue(), "finetune")
+    fit = distill.main(argv(ess_teacher, "--ess", "0"))
+    distill_loss = [loss for _, loss in fit["distill_loss_history"]]
+    ft_loss = [loss for phase in ("finetune", "finetune2")
+               for _, loss in fit[phase]["loss_history"]]
+    check(len(distill_loss) >= 6 and len(ft_loss) >= 6 and not any(fit["resumed"].values())
+          and not fit["finetune"]["resumed"] and not fit["finetune2"]["resumed"],
+          "distill: the first run did not fit the fields itself")
     print(f"distill: nmse {distill_loss[0]:.4f} -> {distill_loss[-1]:.4f} over {DISTILL_STEPS} "
           f"steps; fine-tune pixel mse {ft_loss[0]:.6f} -> {ft_loss[-1]:.6f}")
     check(bool(np.isfinite(distill_loss + ft_loss).all()), "distill: non-finite loss")
@@ -830,12 +833,9 @@ def phase_distill(tmp: str, dataset_dir: str) -> tuple:
     check(0.02 <= share <= 0.5, "distill: no threshold leaves 2-50 % of the cells occupied")
 
     # the serving run: resumes the fields and caches, then every serving form
-    tee = Tee(sys.stdout)
     zero_launch_counts()
-    with contextlib.redirect_stdout(tee):
-        out = distill.main(argv(ess_thresh, "--ess", "1", "--ray_cull", "1"))
+    out = distill.main(argv(ess_thresh, "--ess", "1", "--ray_cull", "1"))
     counts = launch_counts()
-    log = tee.getvalue()
     chunks_per_view = -(-data.h * data.w // DISTILL_CHUNK)
     rc_chunks = out["ray_cull"]["stream"] // DISTILL_CHUNK
     expected = 1 + (DISTILL_REPS + 1) * (chunks_per_view + rc_chunks)
@@ -846,7 +846,8 @@ def phase_distill(tmp: str, dataset_dir: str) -> tuple:
     check(counts["expert_tiles"] == expected,
           f"distill: expert_tiles launched {counts['expert_tiles']} times, expected {expected}")
     check(counts["fused_mlp_v2_fwd"] > 0, "distill: the teacher did not run through kernel B")
-    check(log.count("resumed field from") == 3 and "teacher render cached" in log,
+    check(all(out["resumed"].values()) and out["finetune"]["resumed"]
+          and out["finetune2"]["resumed"],
           "distill: the serving run did not resume the fields and the teacher render")
     ess = out["ess"]
     check(ess["occupied_cells"] == int(occ.sum()), "distill: the tool's occupancy differs")
@@ -913,7 +914,22 @@ def phase_distill(tmp: str, dataset_dir: str) -> tuple:
     check(bool(torch.isfinite(kernel_rgb).all()) and diff <= distill.KERNEL_CHECK_MAX,
           "distill: the fused-kernel view disagrees with the culled view")
     device_ms = profiled("one ESS fused-kernel view of the distilled field", lambda: view(True))
-    return counts, device_ms
+
+    # kernel E against its plain version on what the path launches: the plan of
+    # view 0's first chunk through the compact field, in the serving type (bf16)
+    # and in float32
+    with torch.no_grad():
+        pos, d_flat = ex._flat_samples(o[:DISTILL_CHUNK], d[:DISTILL_CHUNK],
+                                       z_row.expand(DISTILL_CHUNK, -1))
+        _, plan, src = ex.culled_plan(cfield, pos, ess["budget"], EXPERT_TILE)
+        local = ex._local_coords(cfield, pos[src]).contiguous()
+        dirs_slots = d_flat[src].contiguous()
+    check(int(plan.overflow.sum()) == 0 and plan.valid.shape[0] == ess["budget"],
+          "distill: the served chunk's plan overflows or has another length than the budget")
+    on_path = {f"path_{tag}": expert_tiles_variant(f"path_{tag} (one served chunk)",
+                                                   cfield.experts, local, dirs_slots, plan, dtype)
+               for tag, dtype in (("bf16", torch.bfloat16), ("f32", None))}
+    return counts, device_ms, on_path
 
 
 def phase_roofline() -> dict:
@@ -938,7 +954,13 @@ def phase_roofline() -> dict:
     for r in chain + fused:
         check(r["device"] == "cuda" and r["card"], "roofline: a record lacks its card")
     for r in chain:
-        check(r["ms"] > 0 and r["max_abs_diff_kernel_library"] < 0.5,
+        bound = RELU_REL * r["max_abs_output"]
+        print(f"roofline: chain W={r['width']} {r['impl']}: {r['ms']:.4f} ms, max |kernel - "
+              f"library| {r['max_abs_diff_kernel_library']:.3e} (bound {bound:.3e}: one bf16 "
+              f"step of the largest output, {r['max_abs_output']:.4f}), mean |output| "
+              f"{r['mean_abs_output']:.5f}")
+        check(r["ms"] > 0 and r["mean_abs_output"] > 0, f"roofline: chain W={r['width']} died")
+        check(r["max_abs_diff_kernel_library"] <= bound,
               f"roofline: chain W={r['width']} kernel and library disagree")
     for name in ("fused_mlp_v2_fwd", "fused_mlp_v2_bwd", "fused_mlp_fwd"):
         check(counts[name] > 0, f"roofline: part fusedmlp did not launch {name}")
@@ -974,8 +996,13 @@ def main() -> None:
             lambda: render(append_run, out))
         dataset_dir = make_dataset(tmp, kernel_run)
         paths["train"], device_ms["train"] = phase_training(tmp, dataset_dir)
-        paths["distill"], device_ms["distill"] = phase_distill(tmp, dataset_dir)
+        paths["distill"], device_ms["distill"], on_path = phase_distill(tmp, dataset_dir)
         paths["roofline"] = phase_roofline()
+    # kernel E's headline is the plan the distill path launched, in its serving type
+    kernel_e = next(k for k in kernels if k["name"] == "expert_tiles")
+    kernel_e["variants"].update(on_path)
+    kernel_e.update({key: on_path["path_bf16"][key]
+                     for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -367,11 +367,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     field = load_matching_field(os.path.join(args.out_dir, "field.npz"))
     loss = float("nan")
     distill_s = 0.0
-    if field is None:
+    distill_history = []
+    field_resumed = field is not None
+    if not field_resumed:
         field, loss = ex.distill_experts(
             teacher_fn, aabb_min, aabb_max, args.grid, generator(args.seed),
             hidden=args.hidden, l_pos=args.l_pos, l_dir=args.l_dir, n_steps=args.steps,
-            batch=args.batch, lr=args.lr, occupied=occ_teacher, bias_frac=args.distill_bias)
+            batch=args.batch, lr=args.lr, occupied=occ_teacher, bias_frac=args.distill_bias,
+            history=distill_history)
         sync()
         distill_s = time.time() - t0
         print(f"distilled grid={args.grid}^3 hidden={args.hidden} in {distill_s:.1f}s, "
@@ -477,7 +480,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             return z["imgs"], json.loads(str(z["scores"]))
 
     cached = _load_cache(teach_cache, read_teacher)
-    if cached is not None and cached[0].shape == truths.shape:
+    teacher_resumed = cached is not None and cached[0].shape == truths.shape
+    if teacher_resumed:
         teach_imgs, teacher_scores = cached
         print(f"teacher render cached ({teach_cache}) — "
               f"psnr {teacher_scores.get('psnr', float('nan')):.4f}")
@@ -537,19 +541,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 cached = score_experts(f"{tag} (resumed)", field, truths, teach_imgs)
                 save_cached_scores(fname, *cached)
             return {"steps": steps, "seconds": 0.0, "resumed": True, "final_pixel_mse": None,
-                    "overflow": 0, "scores": cached[0], "gap": cached[1]}
+                    "overflow": 0, "loss_history": [], "scores": cached[0], "gap": cached[1]}
         tdata, ft_budget = ft_setup()
         tl = args.finetune_tile
         print(f"{tag}: {steps} steps, batch {args.finetune_batch} x {args.finetune_samples} "
               f"samples, tiled budget {ft_budget} (tile {tl})")
         t0 = time.time()
+        history = []
         # mid-phase checkpoint every 2000 steps: a cut costs at most one window
         part = os.path.join(args.out_dir, fname.replace(".npz", ".part.npz"))
         field, ft_loss, ft_over = ex.finetune_experts(
             field, tdata.origins, tdata.directions, tdata.rgb, generator(args.seed + seed_off),
             near=cfg.near, far=cfg.far, n_samples=args.finetune_samples, budget=ft_budget,
             tile=tl, n_steps=steps, batch=args.finetune_batch, lr=lr, white_background=white,
-            checkpoint_path=part, checkpoint_every=2000)
+            checkpoint_path=part, checkpoint_every=2000, history=history)
         sync()
         ft_s = time.time() - t0
         print(f"{tag} in {ft_s:.1f}s, final pixel mse {ft_loss:.6f}, "
@@ -560,9 +565,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ex.save_field(os.path.join(args.out_dir, fname), field)
         scores, gap = score_experts(tag, field, truths, teach_imgs)
         save_cached_scores(fname, scores, gap)
-        return {"steps": steps, "seconds": round(ft_s, 1),
+        return {"steps": steps, "seconds": round(ft_s, 1), "resumed": False,
                 "final_pixel_mse": round(float(ft_loss), 6), "overflow": ft_over,
-                "scores": scores, "gap": gap}
+                "loss_history": history, "scores": scores, "gap": gap}
 
     ft_meta = None
     if args.finetune_steps > 0:
@@ -772,6 +777,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "device": device.type,
         "distill_seconds": round(distill_s, 1),
         "distill_final_mse": None if np.isnan(loss) else round(float(loss), 5),
+        "distill_loss_history": distill_history,
+        "resumed": {"field": field_resumed, "teacher_render": teacher_resumed},
         "teacher": teacher_scores, "distilled": dist_scores, "distill_gap": gap_scores,
         "finetune": ft_meta, "finetune2": ft2_meta, "ess": ess_meta,
         "ray_cull": ray_cull_meta, "latency_ms": latency,

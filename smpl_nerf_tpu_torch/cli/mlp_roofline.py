@@ -115,7 +115,9 @@ def bench_chain(widths: Sequence[int], n_rows: int, depth: int, reps: int,
         with torch.no_grad():
             out = kernel_chain().float()
             diff = float((out - library_chain().float()).abs().max())
-            out_mean = float(out.abs().mean())      # a chain that died to zeros agrees trivially
+            # a chain that died to zeros agrees trivially; the largest output
+            # is the scale a difference is read against
+            out_mean, out_max = float(out.abs().mean()), float(out.abs().max())
             for name, fn in (("library", library_chain), ("kernel", kernel_chain)):
                 ms = median_ms(fn, reps, device)
                 tfs = flops / (ms * 1e-3) / 1e12
@@ -124,7 +126,8 @@ def bench_chain(widths: Sequence[int], n_rows: int, depth: int, reps: int,
                 _emit(records, {"bench": "chain", "impl": name, "width": W, "rows": n_rows,
                                 "depth": depth, key: ms, "tflops_per_sec": tfs,
                                 "max_abs_diff_kernel_library": diff,
-                                "mean_abs_output": out_mean}, device, card)
+                                "mean_abs_output": out_mean, "max_abs_output": out_max},
+                      device, card)
     return records
 
 

@@ -126,6 +126,17 @@ def expert_raw_fn_tiled(field: Field, pos: torch.Tensor, dirs: torch.Tensor, bud
     return ep.plan_take(plan, out_slots), plan.overflow
 
 
+def culled_plan(field: Field, pos: torch.Tensor, budget: int, tile: int = 256):
+    """The routing of `expert_raw_fn_culled`: (compaction of the in-field
+    samples, sorted-tile plan on the compact stream, source sample of each of
+    the plan's [budget] slots)."""
+    ids, n_route = _route(field, pos)
+    comp = ep.compact_stream(ids < n_route, budget)
+    ids_c = torch.where(comp.valid, ids[comp.src], torch.full_like(comp.src, n_route))
+    plan = ep.sorted_tile_plan(ids_c, n_route, budget, tile)
+    return comp, plan, comp.src[plan.tok]
+
+
 def expert_raw_fn_culled(field: Field, pos: torch.Tensor, dirs: torch.Tensor, budget: int,
                          tile: int = 256, compute_dtype: Optional[torch.dtype] = None,
                          use_kernel: bool = False):
@@ -135,11 +146,7 @@ def expert_raw_fn_culled(field: Field, pos: torch.Tensor, dirs: torch.Tensor, bu
     map back through one gather. Same `budget` as the tiled path (it bounds
     real tokens + padding, so it bounds the compact stream too). Returns
     (raw [N,4], n_overflow scalar): compaction drops + plan drops."""
-    ids, n_route = _route(field, pos)
-    comp = ep.compact_stream(ids < n_route, budget)
-    ids_c = torch.where(comp.valid, ids[comp.src], torch.full_like(comp.src, n_route))
-    plan = ep.sorted_tile_plan(ids_c, n_route, budget, tile)
-    src = comp.src[plan.tok]
+    comp, plan, src = culled_plan(field, pos, budget, tile)
     out_slots = _tiles(field, pos[src], dirs[src], plan, tile, compute_dtype, use_kernel)
     out_c = ep.plan_take(plan, out_slots)                                  # [budget, O]
     raw = out_c[torch.clamp(comp.pos, 0, budget - 1)] * comp.kept[:, None].to(out_c.dtype)
@@ -300,7 +307,8 @@ def _trainable(experts: ep.ExpertMLP):
 def distill_experts(teacher_fn: Callable, aabb_min, aabb_max, grid: int,
                     generator: torch.Generator, *, hidden: int = 32, l_pos: int = 4,
                     l_dir: int = 2, n_steps: int = 1000, batch: int = 4096, lr: float = 1e-3,
-                    occupied=None, bias_frac: float = 0.5) -> tuple:
+                    occupied=None, bias_frac: float = 0.5,
+                    history: Optional[list] = None) -> tuple:
     """Fit a grid^3 stacked-expert field to the teacher by sampled regression,
     on the generator's device. Returns (ExpertField, final loss).
 
@@ -308,7 +316,8 @@ def distill_experts(teacher_fn: Callable, aabb_min, aabb_max, grid: int,
     teacher, and Adam-steps ALL experts jointly on the per-channel-normalised
     MSE of the raw [rgb, sigma] outputs (each sample touches only its own
     cell's expert). The channel scales come from one probe batch and stay
-    fixed. `occupied` [grid^3] bool turns on occupancy-biased sampling.
+    fixed. `occupied` [grid^3] bool turns on occupancy-biased sampling. A
+    `history` list receives (step, loss) at every heartbeat.
     """
     device = generator.device
     aabb_min = torch.as_tensor(np.asarray(aabb_min, np.float32), device=device)
@@ -333,6 +342,8 @@ def distill_experts(teacher_fn: Callable, aabb_min, aabb_max, grid: int,
         loss = distill_step(field, params, optimizer, pos, dirs, target, ch_scale)
         if (i + 1) % hb == 0 or i + 1 == n_steps:
             print(f"  distill step {i + 1}/{n_steps} nmse {float(loss):.4f}", flush=True)
+            if history is not None:
+                history.append((i + 1, float(loss)))
     return field._replace(experts=ep.ExpertMLP(*(p.detach() for p in params))), float(loss)
 
 
@@ -467,7 +478,7 @@ def finetune_experts(field: Field, origins, dirs, rgb, generator: torch.Generato
                      budget: int = 0, tile: int = 32, n_steps: int = 1000, batch: int = 4096,
                      lr: Union[float, Callable[[int], float]] = 5e-4,
                      white_background: bool = False, checkpoint_path: Optional[str] = None,
-                     checkpoint_every: int = 0):
+                     checkpoint_every: int = 0, history: Optional[list] = None):
     """Photometric fine-tuning of the distilled experts on training rays
     (arXiv:2103.13744 §3.3). origins/dirs/rgb are the train split's ray
     arrays [N,3]; every step draws `batch` rays, stratified-samples
@@ -484,7 +495,8 @@ def finetune_experts(field: Field, origins, dirs, rgb, generator: torch.Generato
     whole training state (weights, Adam moments, step, overflow count,
     generator state) is written atomically; a rerun with the same arguments
     resumes the same step, moments and random stream. A checkpoint of other
-    steps, shapes, dtypes, lr or batch is stale and ignored.
+    steps, shapes, dtypes, lr or batch is stale and ignored. A `history` list
+    receives (step, loss) at every heartbeat of this call.
 
     Returns (field, final_loss, total_overflow).
     """
@@ -550,6 +562,8 @@ def finetune_experts(field: Field, origins, dirs, rgb, generator: torch.Generato
         total_over += n_over        # accumulates on the device: no sync per step
         if (i + 1) % hb == 0 or i + 1 == n_steps:
             print(f"  finetune step {i + 1}/{n_steps} mse {float(loss):.6f}", flush=True)
+            if history is not None:
+                history.append((i + 1, float(loss)))
         if (checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0
                 and (i + 1) < n_steps):
             save_checkpoint(i + 1)

@@ -97,12 +97,22 @@ def test_distill_static_nerf_end_to_end(static_out):
     out, out_dir = static_out
     with open(os.path.join(out_dir, "scores.json")) as fh:
         assert json.load(fh) == json.loads(json.dumps(out))
-    # the keys of the JAX tool's scores.json, and the device the times were taken on
+    # the keys of the JAX tool's scores.json, the device the times were taken on,
+    # the heartbeat losses and what was resumed
     assert {"run_dir", "dataset_dir", "grid", "hidden", "steps", "samples", "chunk", "tile",
             "budget_full", "model_type", "pose_image", "pose_views_scored", "distill_bias",
             "serve_dtype", "distill_seconds", "distill_final_mse", "teacher", "distilled",
             "distill_gap", "finetune", "finetune2", "ess", "ray_cull", "latency_ms",
-            "device"} == set(out)
+            "device", "distill_loss_history", "resumed"} == set(out)
+    assert out["resumed"] == {"field": False, "teacher_render": False}
+    steps, losses = zip(*out["distill_loss_history"])
+    assert steps[-1] == out["steps"] and list(steps) == sorted(set(steps))
+    assert np.isfinite(losses).all() and losses[-1] == pytest.approx(out["distill_final_mse"],
+                                                                     abs=1e-5)
+    for phase in ("finetune", "finetune2"):
+        steps, losses = zip(*out[phase]["loss_history"])
+        assert steps[-1] == out[phase]["steps"] and not out[phase]["resumed"]
+        assert losses[-1] == pytest.approx(out[phase]["final_pixel_mse"], abs=1e-6)
     assert out["device"] == "cpu" and out["model_type"] == "nerf" and out["pose_image"] is None
     for leg in ("teacher", "distilled", "distill_gap"):
         assert set(out[leg]) == {"mse", "psnr", "ssim"} and out[leg]["psnr"] > 0
@@ -140,6 +150,9 @@ def test_a_rerun_resumes_fields_and_caches_and_recomputes_a_cache_that_does_not_
     assert "field_ft.npz.scores.json does not load" in said
     assert "scores cached" in said and "distill step" not in said
     assert again["finetune"]["resumed"] and again["distill_seconds"] == 0.0
+    # the teacher render was truncated above, so it alone is recomputed
+    assert again["resumed"] == {"field": True, "teacher_render": False}
+    assert again["distill_loss_history"] == [] and again["finetune2"]["loss_history"] == []
     for leg in ("teacher", "distilled"):
         assert again[leg]["psnr"] == pytest.approx(out[leg]["psnr"], abs=1e-4)
     assert again["finetune"]["scores"]["psnr"] == pytest.approx(

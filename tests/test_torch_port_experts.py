@@ -11,9 +11,12 @@ Tolerances: float32 paths differ only in summation order (2e-5, the JAX
 package's own bound for its kernel, and 1e-4 on rendered rgb). bf16 paths
 round at the same places on both sides, but a sum taken in another order can
 flip one bf16 rounding (2^-8 relative), which a second layer carries on:
-5e-2 absolute on outputs of order 1. An Adam step moves every weight by at
-most lr; where a gradient is tiny against Adam's eps the two frameworks'
-last bits show, so updated weights are held to 2 % of lr.
+5e-2 absolute on outputs of order 1. The training steps take three injected batches
+in a row: each step's loss (1e-5 relative) and gradients (1e-4 relative plus
+1e-5 of the tensor's largest gradient, for the summation order) are compared
+directly, since a first Adam step alone moves every weight by lr whatever the
+gradient's size. The weights after the three steps are held to 2 % of lr:
+where a gradient is tiny against Adam's eps the two frameworks' last bits show.
 """
 import jax
 import jax.numpy as jnp
@@ -374,31 +377,45 @@ def _adam_updated(params_t, lr):
     return torch.optim.Adam(params_t, lr=lr, eps=1e-8)
 
 
+def _same_grads(params, grads):
+    for p, g in zip(params, grads):
+        g = np.asarray(g)
+        assert np.abs(g).max() > 0
+        _same(p.grad, g, rtol=1e-4, atol=1e-5 * np.abs(g).max())
+
+
+N_ADAM_STEPS = 3
+
+
 def test_one_injected_batch_adam_step_of_distill_experts_matches_jax(rng):
     field_t, field_j = _both_fields(rng, grid=2, hidden=8)
-    pos, dirs = _points(rng, 256, span=1.0)
-    pos = pos * np.float32([1.0, 0.9, 0.9])          # inside the AABB
-    target = rng.randn(256, 4).astype(np.float32)
     ch_scale = np.float32([0.5, 1.0, 2.0, 0.7])
     lr = 1e-3
 
     tx = optax.adam(lr)
-    opt_state = tx.init(field_j.experts)
-    pj, dj = _j(pos, dirs)
-    ids = jep.voxel_expert_ids(pj, field_j.aabb_min, field_j.aabb_max, field_j.grid)
-    x = jex._encode(field_j, pj, dj)
-
-    def loss_fn(e):
-        return jnp.mean(((jep.expert_apply(e, x, ids) - target) / ch_scale) ** 2)
-
-    want_loss, grads = jax.value_and_grad(loss_fn)(field_j.experts)
-    updates, _ = tx.update(grads, opt_state)
-    want = optax.apply_updates(field_j.experts, updates)
-
+    want = field_j.experts
+    opt_state = tx.init(want)
     params = ex._trainable(field_t.experts)
-    got_loss = ex.distill_step(field_t, params, _adam_updated(params, lr), *_t(pos, dirs, target),
-                               torch.tensor(ch_scale))
-    assert float(got_loss) == pytest.approx(float(want_loss), rel=1e-5)
+    optimizer = _adam_updated(params, lr)
+    for _ in range(N_ADAM_STEPS):
+        pos, dirs = _points(rng, 256, span=1.0)
+        pos = pos * np.float32([1.0, 0.9, 0.9])          # inside the AABB
+        target = rng.randn(256, 4).astype(np.float32)
+        pj, dj = _j(pos, dirs)
+        ids = jep.voxel_expert_ids(pj, field_j.aabb_min, field_j.aabb_max, field_j.grid)
+        x = jex._encode(field_j, pj, dj)
+
+        def loss_fn(e):
+            return jnp.mean(((jep.expert_apply(e, x, ids) - target) / ch_scale) ** 2)
+
+        want_loss, grads = jax.value_and_grad(loss_fn)(want)
+        updates, opt_state = tx.update(grads, opt_state)
+        want = optax.apply_updates(want, updates)
+
+        got_loss = ex.distill_step(field_t, params, optimizer, *_t(pos, dirs, target),
+                                   torch.tensor(ch_scale))
+        assert float(got_loss) == pytest.approx(float(want_loss), rel=1e-5)
+        _same_grads(params, grads)
     for p, w, before in zip(params, want, field_t.experts):
         _same(p, w, atol=0.02 * lr)
         assert float((p.detach() - before).abs().max()) > 0.5 * lr     # it did move
@@ -407,32 +424,35 @@ def test_one_injected_batch_adam_step_of_distill_experts_matches_jax(rng):
 @pytest.mark.parametrize("path", ["tiled", "bucketed"])
 def test_one_injected_batch_adam_step_of_finetune_experts_matches_jax(rng, path):
     field_t, field_j = _both_fields(rng, grid=2, hidden=8)
-    o, d, z = _rays(rng, 32, 12)
-    z = z + rng.uniform(0, 0.2, z.shape).astype(np.float32)
-    c = rng.uniform(0, 1, (32, 3)).astype(np.float32)
     lr = 5e-4
     kw = dict(budget=512, tile=8) if path == "tiled" else dict(capacity=256)
 
     tx = optax.adam(lr)
-    opt_state = tx.init(field_j.experts)
-
-    def loss_fn(e):
-        f = field_j._replace(experts=e)
-        if path == "tiled":
-            outs, n_over = jex.render_rays_with_experts_tiled(f, *_j(o, d, z), 512, 8)
-        else:
-            outs, n_over = jex.render_rays_with_experts_bucketed(f, *_j(o, d, z), 256)
-        return jnp.mean((outs.rgb - c) ** 2), n_over
-
-    (want_loss, want_over), grads = jax.value_and_grad(loss_fn, has_aux=True)(field_j.experts)
-    updates, _ = tx.update(grads, opt_state)
-    want = optax.apply_updates(field_j.experts, updates)
-
+    want = field_j.experts
+    opt_state = tx.init(want)
     params = ex._trainable(field_t.experts)
-    got_loss, got_over = ex.finetune_step(field_t, params, _adam_updated(params, lr),
-                                          *_t(o, d, c, z), **kw)
-    assert int(got_over) == int(want_over) == 0
-    assert float(got_loss) == pytest.approx(float(want_loss), rel=1e-5)
+    optimizer = _adam_updated(params, lr)
+    for _ in range(N_ADAM_STEPS):
+        o, d, z = _rays(rng, 32, 12)
+        z = z + rng.uniform(0, 0.2, z.shape).astype(np.float32)
+        c = rng.uniform(0, 1, (32, 3)).astype(np.float32)
+
+        def loss_fn(e):
+            f = field_j._replace(experts=e)
+            if path == "tiled":
+                outs, n_over = jex.render_rays_with_experts_tiled(f, *_j(o, d, z), 512, 8)
+            else:
+                outs, n_over = jex.render_rays_with_experts_bucketed(f, *_j(o, d, z), 256)
+            return jnp.mean((outs.rgb - c) ** 2), n_over
+
+        (want_loss, want_over), grads = jax.value_and_grad(loss_fn, has_aux=True)(want)
+        updates, opt_state = tx.update(grads, opt_state)
+        want = optax.apply_updates(want, updates)
+
+        got_loss, got_over = ex.finetune_step(field_t, params, optimizer, *_t(o, d, c, z), **kw)
+        assert int(got_over) == int(want_over) == 0
+        assert float(got_loss) == pytest.approx(float(want_loss), rel=1e-5)
+        _same_grads(params, grads)
     for p, w in zip(params, want):
         _same(p, w, atol=0.02 * lr)
 

@@ -88,6 +88,10 @@ def test_roofline_main_runs_both_parts_on_the_cpu(capsys):
         assert r["host_ms"] > 0 and r["depth"] == 3 and r["rows"] == 192
         # the plain version sums in float32, the library's bf16 matmul rounds alike
         assert r["max_abs_diff_kernel_library"] < 0.1
+        # a live chain, and a difference of at most one bf16 step of the largest
+        # output for each layer that could flip a rounding
+        assert r["mean_abs_output"] > 0
+        assert r["max_abs_diff_kernel_library"] <= 3 * BF16_STEP * r["max_abs_output"]
     for r in fused:
         assert r["fwd_host_ms"] > 0 and r["fwdbwd_host_ms"] > 0 and "refused" not in r
 
