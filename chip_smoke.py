@@ -10,12 +10,14 @@ unguarded, so that any failure exits non-zero:
 
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build every kernel from smpl_nerf_tpu_torch/csrc/ (one nvcc per source,
-     all started together) and print the build seconds and ptxas usage;
+     all started together) and print the build seconds and ptxas usage
+     (registers, spills, wgmma serialisation);
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, with CUDA-event times (median of 20) of both and the
      least time the card could take for the same work: A (sample_pdf), B
      (fused v2 forward), D (fused v1 forward, the configs/config.txt net with
-     its 621-wide pose prefix), C (fused v2 backward, seeded cotangent), E
+     its 621-wide pose prefix, at 131,072 and 262,144 rows), C (fused v2
+     backward, seeded cotangent), E
      (fused expert tiles: seeded sorted-tile plans with padding slots and empty
      trailing tiles at E=8000, L=413,696 and at E_occ=329, L=57,344, D=42,
      H=32, O=4, tile 256, in bf16 and in float32; its headline numbers come
@@ -206,7 +208,7 @@ def phase_build() -> None:
     print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
 
@@ -315,38 +317,45 @@ def phase_fused_mlp(device) -> dict:
 
 def phase_fused_mlp_v1(device) -> dict:
     """Kernel D on pre-encoded rows of the configs/config.txt net: 621-wide
-    pose prefix (69 joints x (1 + 2*4)), 60 position and 24 direction columns."""
+    pose prefix (69 joints x (1 + 2*4)), 60 position and 24 direction columns,
+    at the append render's two batch sizes: 131,072 rows (a coarse batch, the
+    entry's headline) and 262,144 (a fine batch)."""
     from smpl_nerf_tpu_torch.ops import fused_mlp
 
     net = full_width_net(device, seed=3, additional_input_dim=621)
     spec = fused_mlp.spec_from_model(net)
     flat = fused_mlp.flatten_params(spec, net)
-    g = torch.Generator(device=device).manual_seed(4)
-    # encoded columns lie in [-1, 1]; the identity part of the pose prefix too
-    x = 2.0 * torch.rand(MLP_ROWS, spec.in_dim, generator=g, device=device) - 1.0
-    with torch.no_grad():
-        got = fused_mlp.fused_forward_cuda(spec, net, x)
-        want = fused_mlp.reference_forward(spec, flat, x)
-    torch.cuda.synchronize()
-    print(f"kernel D fused_mlp_fwd N={MLP_ROWS} in_dim={spec.in_dim} "
-          f"(prefix {spec.additional_input_dim}) W={spec.width} layers={spec.n_layers} "
-          f"skips={spec.skips} bf16, {fused_mlp.shared_bytes(spec)} B shared memory per block:")
-    max_err, rel_err = forward_parity("fused v1", got, want)
-    with torch.no_grad():
-        ms = time_ms(lambda: fused_mlp.fused_forward_cuda(spec, net, x))
-        plain_ms = time_ms(lambda: fused_mlp.reference_forward(spec, flat, x))
-    flops = 2 * mlp_macs(spec) * MLP_ROWS
-    bytes_moved = MLP_ROWS * (spec.in_dim + 4) * 4 + sum(p.numel() for p in flat) * 2
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * bytes_moved / PEAK_BYTES_PER_S
-    print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound by operations "
-          f"{ops_ms:.5f} ms ({flops:.4g} FLOP; {mlp_macs(spec)} MAC/sample), by bytes "
-          f"{bytes_ms:.5f} ms ({bytes_moved} B; {(spec.in_dim + 4) * 4} B/sample)")
+    by_rows = {}
+    for rows in (MLP_ROWS, 2 * MLP_ROWS):
+        g = torch.Generator(device=device).manual_seed(4)
+        # encoded columns lie in [-1, 1]; the identity part of the pose prefix too
+        x = 2.0 * torch.rand(rows, spec.in_dim, generator=g, device=device) - 1.0
+        with torch.no_grad():
+            got = fused_mlp.fused_forward_cuda(spec, net, x)
+            want = fused_mlp.reference_forward(spec, flat, x)
+        torch.cuda.synchronize()
+        print(f"kernel D fused_mlp_fwd N={rows} in_dim={spec.in_dim} "
+              f"(prefix {spec.additional_input_dim}) W={spec.width} layers={spec.n_layers} "
+              f"skips={spec.skips} bf16, {fused_mlp.shared_bytes(spec)} B shared memory per "
+              f"block:")
+        max_err, rel_err = forward_parity("fused v1", got, want)
+        with torch.no_grad():
+            ms = time_ms(lambda: fused_mlp.fused_forward_cuda(spec, net, x))
+            plain_ms = time_ms(lambda: fused_mlp.reference_forward(spec, flat, x))
+        flops = 2 * mlp_macs(spec) * rows
+        bytes_moved = rows * (spec.in_dim + 4) * 4 + sum(p.numel() for p in flat) * 2
+        ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * bytes_moved / PEAK_BYTES_PER_S
+        print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound by operations "
+              f"{ops_ms:.5f} ms ({flops:.4g} FLOP; {mlp_macs(spec)} MAC/sample), by bytes "
+              f"{bytes_ms:.5f} ms ({bytes_moved} B; {(spec.in_dim + 4) * 4} B/sample), "
+              f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
+        by_rows[str(rows)] = {"max_abs_err": max_err, "rel_err": rel_err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
     return {"name": "fused_mlp_fwd", "route": "cuda",
             "source": "smpl_nerf_tpu_torch/csrc/fused_mlp_fwd.cu",
-            "replaces": "smpl_nerf_tpu/ops/fused_mlp.py:139",
-            "max_abs_err": max_err, "rel_err": rel_err, "parity_ok": True,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
+            "replaces": "smpl_nerf_tpu/ops/fused_mlp.py:139", "parity_ok": True,
+            **by_rows[str(MLP_ROWS)], "library_ms": None, "by_rows": by_rows}
 
 
 def phase_fused_bwd(device) -> dict:

@@ -6,20 +6,28 @@ topology of a RenderRayNet; `flatten_params` turns a net into (kernel
 
 `fused_apply(spec, net, x)` applies the net to pre-encoded rows
 [prefix || pos_enc || dir_enc] -> [N, 4]. It replaces the TPU kernel
-`fused_mlp._pallas_forward`: CUDA rows launch csrc/fused_mlp_fwd.cu (the
-whole MLP per 64-row tile, bf16 tensor cores, weights streamed through shared
-memory; see the source for the design and what bounds it), CPU rows take the
-plain PyTorch version `reference_forward`. It never falls back from CUDA to
-the plain version. `launches` counts kernel launches.
+`fused_mlp._pallas_forward`: CUDA rows launch csrc/fused_mlp_fwd.cu, CPU rows
+take the plain PyTorch version `reference_forward`. It never falls back from
+CUDA to the plain version. `launches` counts kernel launches.
+
+What bounds the kernel on the H100: tensor-core operations (~650 per byte
+at the 705-wide append_smpl_params rows). Beside them every row tile streams
+the whole weight set from L2, and the 621-wide prefix cannot stay in shared
+memory. The design (in the source): 128-row tiles on a persistent grid, a
+producer warpgroup that streams 64-row weight chunks of `pack_weights_d`
+with `cp.async.bulk` through an mbarrier ring and builds the bf16 A chunks of
+the prefix+pos and dir blocks from float32 x, two consumer warpgroups that
+run wgmma with the activations kept in registers from layer to layer. The
+prefix streams, so neither it nor the directions bound the net's shape.
 
 The gradient follows the JAX package, whose v1 backward is no kernel but
 `jax.vjp` of `reference_forward` (recompute in backward): an autograd
 Function whose forward launches the kernel and whose backward differentiates
 `reference_forward` with torch ops.
 
-`pack_weights` builds the weight pack all three fused MLP kernels read; it is
-cached on the module and rebuilt when a parameter changes (an optimizer step
-bumps the parameters' `_version`).
+`pack_weights` builds the weight pack kernels B and C read; `pack_weights_d`
+kernel D's own. Both are cached on the module by `packed` and rebuilt when a
+parameter changes (an optimizer step bumps the parameters' `_version`).
 """
 from __future__ import annotations
 
@@ -225,13 +233,16 @@ def unpack_grads(spec: MlpSpec, dw: torch.Tensor, db: torch.Tensor) -> Tuple[tor
     return tuple(t for name in _param_order(spec) for t in grads[name])
 
 
-def packed(spec: MlpSpec, net: torch.nn.Module, device):
-    """The module's weight pack on `device`, rebuilt when a parameter changes."""
+def packed(spec: MlpSpec, net: torch.nn.Module, device, builder=None):
+    """The module's weight pack on `device` (`pack_weights`, or `builder`'s),
+    rebuilt when a parameter changes."""
+    builder = builder or pack_weights
     key = (spec, str(device), tuple((p.data_ptr(), p._version) for p in net.parameters()))
-    cached = getattr(net, "_fused_pack", None)
+    packs = net.__dict__.setdefault("_fused_packs", {})
+    cached = packs.get(builder.__name__)
     if cached is None or cached[0] != key:
-        cached = (key, pack_weights(spec, flatten_params(spec, net), device))
-        net._fused_pack = cached
+        cached = (key, builder(spec, flatten_params(spec, net), device))
+        packs[builder.__name__] = cached
     return cached[1]
 
 
@@ -252,23 +263,126 @@ def topology_reason(spec: MlpSpec) -> str:
 
 # ------------------------------------------------------------------- kernel D
 
-def shared_bytes(spec: MlpSpec) -> int:
-    """Dynamic shared memory of one block of csrc/fused_mlp_fwd.cu (its make_dims)."""
-    def align128(n):
-        return (n + 127) // 128 * 128
+D_TILE_ROWS = 128          # rows per tile of csrc/fused_mlp_fwd.cu (two warpgroups of 64)
+D_CHUNK = 64               # weight rows per streamed chunk, x columns per A chunk
 
-    pad, chunk, warps = 8, 32, 8
-    lda = spec.width + pad
-    total = 2 * align128(2 * TILE_ROWS * lda)                                  # activations
-    total += align128(2 * TILE_ROWS * (_round16(spec.pos_block) + pad))         # prefix + pos
-    total += align128(2 * TILE_ROWS * (_round16(spec.directions_dim) + pad))    # directions
-    total += align128(2 * chunk * lda)                                          # weight chunk
-    total += align128(4 * warps * 256) + align128(4 * TILE_ROWS * 4)            # scratch, out
-    return total
+
+def padded_width(spec: MlpSpec) -> int:
+    """The width kernel D computes at: W padded to 128 or 256 with zero weights."""
+    return 128 if spec.width <= 128 else 256
+
+
+def _round64(n: int) -> int:
+    return -(-n // D_CHUNK) * D_CHUNK
+
+
+def d_layout(spec: MlpSpec) -> List[tuple]:
+    """[(name, segments, N, N padded)] of the dense layers in kernel D's order.
+
+    `segments` are (source, real rows, padded rows) of the layer's K in the
+    order the kernel streams them: "act" (the previous layer's activations,
+    W real of the padded width), "pos" (the prefix+pos block) and "dir" (the
+    direction block), each padded to a multiple of 64 rows.
+    """
+    W, WP, PB, D = spec.width, padded_width(spec), spec.pos_block, spec.directions_dim
+    act, half = ("act", W, WP), ("act", W // 2, WP // 2)
+    pos, dirs = ("pos", PB, _round64(PB)), ("dir", D, _round64(D))
+    layout = [("positions_pose_input", [pos], W, WP)]
+    layout += [(f"positional_net_{i}", [act] + ([pos] if i in spec.skips else []), W, WP)
+               for i in range(spec.n_layers - 1)]
+    layout += [("additional_linear_layer", [act], W, WP),
+               ("directional_input", [act] + ([dirs] if spec.use_directional_input else []),
+                W // 2, WP // 2),
+               ("directional_net_0", [half], W // 2, WP // 2)]
+    return layout
+
+
+def _swizzle_index(chunks: int, n: int, device) -> torch.Tensor:
+    """Gather index over the 16-byte groups of each line: g <-> g ^ (n % 8)."""
+    groups = torch.arange(8, device=device)[None, :] ^ (torch.arange(n, device=device)[:, None] % 8)
+    return groups[None, :, :, None].expand(chunks, n, 8, 8)
+
+
+def swizzle_chunks(k: torch.Tensor) -> torch.Tensor:
+    """[K, N] (K a multiple of 64) -> the chunk images kernel D copies, [K // 64, N, 64].
+
+    Chunk c holds rows [64 c, 64 c + 64) as wgmma's K-major operand with the
+    128-byte swizzle: one 128-byte line per output column n (its 64 k values),
+    16-byte group g of line n at position g ^ (n % 8).
+    """
+    K, N = k.shape
+    C = K // D_CHUNK
+    lines = k.reshape(C, D_CHUNK, N).transpose(1, 2).reshape(C, N, 8, 8)
+    return lines.gather(2, _swizzle_index(C, N, k.device)).reshape(C, N, D_CHUNK)
+
+
+def swizzle_chunks_inverse(images: torch.Tensor) -> torch.Tensor:
+    """[C, N, 64] chunk images -> [64 C, N] (the swizzle is its own inverse)."""
+    C, N, _ = images.shape
+    lines = images.reshape(C, N, 8, 8).gather(2, _swizzle_index(C, N, images.device))
+    return lines.reshape(C, N, D_CHUNK).transpose(1, 2).reshape(C * D_CHUNK, N)
+
+
+def pack_weights_d(spec: MlpSpec, flat, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel D's own pack: (chunk images bf16 [total], biases f32 [total],
+    heads f32 [WP + 3 WP / 2 + 4]) on `device`.
+
+    Every dense layer of `d_layout`, in order, as `swizzle_chunks` images of
+    its zero-padded [K, N padded] kernel, so one bulk copy lands a chunk in
+    the layout wgmma reads; biases zero-padded to N padded. Heads: the
+    sigma_out_layer column [WP], rgb_out_layer [WP / 2, 3] (both rounded to
+    bf16, as the plain version rounds them), then the rgb and sigma biases.
+    Built from the same `flatten_params` as `pack_weights`, whose layout
+    kernels B and C read and which stays as it is.
+    """
+    it = iter(flat)
+    layers = {name: (next(it), next(it)) for name in _param_order(spec)}
+    WP = padded_width(spec)
+    w_parts, b_parts = [], []
+    for name, segments, n_real, n_pad in d_layout(spec):
+        k, b = layers[name]
+        k = k.detach().float()
+        rows, r = [], 0
+        for _, real, padded in segments:
+            block = k.new_zeros(padded, n_pad)
+            block[:real, :n_real] = k[r:r + real]
+            rows.append(block)
+            r += real
+        if r != k.shape[0] or k.shape[1] != n_real:
+            raise ValueError(f"{name}: kernel is {tuple(k.shape)}, expected ({r}, {n_real})")
+        w_parts.append(swizzle_chunks(torch.cat(rows).to(torch.bfloat16)).reshape(-1))
+        bias = b.detach().float().new_zeros(n_pad)
+        bias[:n_real] = b.detach().float()
+        b_parts.append(bias)
+    sig_k, sig_b = layers["sigma_out_layer"]
+    rgb_k, rgb_b = layers["rgb_out_layer"]
+    sig = sig_k.detach().float().new_zeros(WP)
+    sig[:spec.width] = sig_k.detach().float()[:, 0]
+    rgb = rgb_k.detach().float().new_zeros(WP // 2, 3)
+    rgb[:spec.width // 2] = rgb_k.detach().float()
+    heads = torch.cat([sig.to(torch.bfloat16).float(), rgb.to(torch.bfloat16).float().reshape(-1),
+                       rgb_b.detach().float().reshape(-1), sig_b.detach().float().reshape(-1)])
+    return (torch.cat(w_parts).to(device), torch.cat(b_parts).to(device), heads.to(device))
+
+
+def shared_bytes(spec: MlpSpec) -> int:
+    """Dynamic shared memory of one block of csrc/fused_mlp_fwd.cu (its Cfg):
+    a ring of 3 (padded width 256) or 4 (128) stages of one weight chunk and
+    one 128 x 64 bf16 A chunk of x, two 128 x 64 float32 landing slots for x,
+    the mbarriers and 1024 B of alignment slack. The prefix, the directions
+    and the depth do not enter: every block of K is streamed."""
+    WP = padded_width(spec)
+    stages = 3 if WP == 256 else 4
+    stage = D_CHUNK * WP * 2 + D_TILE_ROWS * D_CHUNK * 2
+    return stages * stage + 2 * D_TILE_ROWS * D_CHUNK * 4 + 2 * stages * 8 + 1024
 
 
 def kernel_supports(spec: MlpSpec) -> str:
-    """'' if the v1 CUDA kernel takes this net, else the reason it does not."""
+    """'' if the v1 CUDA kernel takes this net, else the reason it does not.
+
+    Limits: bf16, W a multiple of 32 in [32, 256], 1 to 32 layers, a
+    positional block; any prefix and direction width (both stream through the
+    ring in 64-column chunks, so shared memory no longer bounds them)."""
     reason = topology_reason(spec)
     if reason:
         return reason
@@ -276,10 +390,6 @@ def kernel_supports(spec: MlpSpec) -> str:
         return "the kernel needs a positional input block"
     if spec.use_directional_input and spec.directions_dim <= 0:
         return "directional input needs a directional encoding"
-    if shared_bytes(spec) > MAX_SHARED_BYTES:
-        return (f"a {TILE_ROWS}-row tile with a {spec.pos_block}-wide prefix+position block "
-                f"needs {shared_bytes(spec)} bytes of shared memory, over the "
-                f"{MAX_SHARED_BYTES} a block can have")
     return ""
 
 
@@ -289,6 +399,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_mlp_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_uint, i, p]
     lib.fused_mlp_fwd_launch.restype = ctypes.c_int
+    lib.fused_mlp_fwd_shared_bytes.argtypes = [i]
+    lib.fused_mlp_fwd_shared_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -303,7 +415,7 @@ def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x: torch.Tensor) -> 
     if x.dim() != 2 or x.shape[1] != spec.in_dim or not x.is_contiguous():
         raise ValueError(f"fused v1 kernel takes contiguous [N, {spec.in_dim}] rows, "
                          f"got {tuple(x.shape)}")
-    w, b, table = packed(spec, net, x.device)
+    w, b, heads = packed(spec, net, x.device, pack_weights_d)
     N = x.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
     if N == 0:
@@ -311,7 +423,7 @@ def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x: torch.Tensor) -> 
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_mlp_fwd_launch(
-        x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), table.data_ptr(),
+        x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), heads.data_ptr(),
         N, spec.n_layers, spec.width, spec.pos_block, spec.directions_dim, spec.in_dim,
         skip_mask(spec), int(spec.use_directional_input), stream)
     _build.check(lib, err, "fused_mlp_fwd")

@@ -6,7 +6,13 @@ w [K, N] are bf16; the products accumulate in float32, relu is applied in
 float32 and the result is rounded to bf16 once.
 
 What bounds it on the H100: bytes at widths 256 and 512 (W / 2 operations per
-byte moved), tensor-core operations at 1024; see the source for the design.
+byte moved), tensor-core operations at 1024. The kernel is the Hopper GEMM
+shape (csrc/relu_matmul.cu, over csrc/hopper.cuh): a persistent block per SM,
+one producer warp that keeps TMA copies of x and w in flight through a ring
+of mbarrier-guarded stages, and two consumer warpgroups that run wgmma on
+128 x 256 (or 128 x 128) output tiles and store through TMA, so that copies,
+tensor-core products and the epilogue overlap. w goes in as it lies ([K, N],
+N contiguous) through wgmma's transpose bit; nothing is transposed per call.
 
 `relu_matmul` takes the plain version (`relu_matmul_reference`) for CPU
 tensors and launches the kernel for CUDA tensors; it never falls back from
@@ -22,8 +28,8 @@ import torch
 
 from smpl_nerf_tpu_torch.ops import _build
 
-K_MULTIPLE, N_MULTIPLE = 32, 128     # BK and BN in csrc/relu_matmul.cu
-MAX_ROWS = 65535 * 128               # grid.y blocks of 128 rows
+K_MULTIPLE, N_MULTIPLE = 32, 128     # TMA zero-fills a K tail of 32; BN is 256 or 128
+MAX_ROWS = 2 ** 31 - 1               # rows are int32 TMA coordinates
 launches = 0
 
 

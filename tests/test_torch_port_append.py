@@ -240,15 +240,149 @@ def test_kernel_d_gate_and_shared_memory_budget():
     flagship = fused_mlp.MlpSpec(additional_input_dim=621)        # configs/config.txt
     assert fused_mlp.kernel_supports(flagship) == ""
     assert 150_000 < fused_mlp.shared_bytes(flagship) <= fused_mlp.MAX_SHARED_BYTES
-    assert fused_mlp.shared_bytes(fused_mlp.MlpSpec()) < fused_mlp.MAX_SHARED_BYTES // 2
-    assert "shared memory" in fused_mlp.kernel_supports(
-        fused_mlp.MlpSpec(additional_input_dim=1200))
+    # the prefix and the directions stream through the ring: they set no limit
+    for wide in (fused_mlp.MlpSpec(additional_input_dim=1200),
+                 fused_mlp.MlpSpec(additional_input_dim=5000, directions_dim=300)):
+        assert fused_mlp.kernel_supports(wide) == ""
+        assert fused_mlp.shared_bytes(wide) == fused_mlp.shared_bytes(flagship)
+    assert fused_mlp.shared_bytes(fused_mlp.MlpSpec(width=128)) < fused_mlp.shared_bytes(flagship)
+    assert fused_mlp.padded_width(fused_mlp.MlpSpec(width=32)) == 128
+    assert fused_mlp.padded_width(fused_mlp.MlpSpec(width=160)) == 256
     assert "bfloat16" in fused_mlp.kernel_supports(fused_mlp.MlpSpec(dtype="float32"))
     assert "width" in fused_mlp.kernel_supports(fused_mlp.MlpSpec(width=48))
     x = torch.zeros(4, flagship.in_dim)
     net = RenderRayNet(additional_input_dim=621, compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         fused_mlp.fused_forward_cuda(flagship, net, x)
+
+
+def _old_kernel_d_shared_bytes(spec):
+    """The shared memory of the first kernel D (64-row tiles, the prefix+pos
+    block resident), which refused a net whose tile did not fit."""
+    def align128(n):
+        return (n + 127) // 128 * 128
+
+    def round16(n):
+        return (n + 15) // 16 * 16
+
+    lda = spec.width + 8
+    total = 2 * align128(2 * 64 * lda) + align128(2 * 64 * (round16(spec.pos_block) + 8))
+    total += align128(2 * 64 * (round16(spec.directions_dim) + 8)) + align128(2 * 32 * lda)
+    return total + align128(4 * 8 * 256) + align128(4 * 64 * 4)
+
+
+def _old_prefix_limit(width, directions_dim):
+    add = 0
+    while _old_kernel_d_shared_bytes(fused_mlp.MlpSpec(
+            width=width, additional_input_dim=add + 1,
+            directions_dim=directions_dim)) <= fused_mlp.MAX_SHARED_BYTES:
+        add += 1
+    return add
+
+
+@pytest.mark.parametrize("width", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("directions_dim,use_dir", [(24, True), (72, True), (0, False)])
+def test_kernel_d_takes_every_net_the_first_kernel_took(width, directions_dim, use_dir):
+    limit = _old_prefix_limit(width, directions_dim)
+    assert limit >= 621 or width > 128
+    for add in (0, 1, 18, 621, limit):
+        spec = fused_mlp.MlpSpec(width=width, additional_input_dim=add,
+                                 directions_dim=directions_dim, use_directional_input=use_dir)
+        if _old_kernel_d_shared_bytes(spec) <= fused_mlp.MAX_SHARED_BYTES:
+            assert fused_mlp.kernel_supports(spec) == "", (width, add)
+            assert fused_mlp.shared_bytes(spec) <= fused_mlp.MAX_SHARED_BYTES
+
+
+# ------------------------------------------------------- kernel D, its schedule
+
+def _emulate_kernel_d(spec, w, b, heads, x):
+    """Kernel D's schedule step by step on the CPU, reading its own pack: per
+    layer, the accumulator starts from the float32 bias and takes 64-row
+    weight chunks in stream order (the previous activations first, then the
+    prefix+pos or dir block in 64-column chunks of bf16 x) in float32; bf16
+    rounding where the kernel rounds, float32 heads over the padded width."""
+    WP = fused_mlp.padded_width(spec)
+    blocks = {"pos": x[:, :spec.pos_block],
+              "dir": x[:, spec.in_dim - spec.directions_dim:]}
+    w_off = b_off = 0
+    act, rgb, sigma = None, None, None
+    relu = {"positions_pose_input", "directional_net_0"}
+    for name, segments, _, n_pad in fused_mlp.d_layout(spec):
+        acc = b[b_off:b_off + n_pad].expand(x.shape[0], n_pad)   # starts from the bias
+        b_off += n_pad
+        for src, _, padded in segments:
+            for c in range(padded // fused_mlp.D_CHUNK):
+                image = w[w_off:w_off + n_pad * 64].view(1, n_pad, 64)
+                w_off += n_pad * 64
+                chunk = fused_mlp.swizzle_chunks_inverse(image).float()       # [64, n_pad]
+                if src == "act":
+                    a = act[:, 64 * c:64 * c + 64]
+                else:
+                    a = blocks[src][:, 64 * c:64 * c + 64].to(torch.bfloat16)
+                    a = torch.cat([a, a.new_zeros(a.shape[0], 64 - a.shape[1])], -1)
+                acc = acc + a.float() @ chunk
+        if name in relu or name.startswith("positional_net_"):
+            acc = torch.relu(acc)
+        act = acc.to(torch.bfloat16)
+        if name == "additional_linear_layer":
+            sigma = act.float() @ heads[:WP] + heads[-1]
+        if name == "directional_net_0":
+            hw = heads[WP:WP + 3 * (WP // 2)].view(WP // 2, 3)
+            rgb = act.float() @ hw + heads[WP + 3 * (WP // 2):WP + 3 * (WP // 2) + 3]
+    assert w_off == w.numel() and b_off == b.numel()
+    return torch.cat([rgb, sigma[:, None]], -1)
+
+
+@pytest.mark.parametrize("add", [0, 18, 621])
+@pytest.mark.parametrize("kw", [{}, {"width": 64, "skips": (0, 1)}, {"use_dir": False}])
+def test_kernel_d_schedule_matches_plain_and_jax_pallas_forward_interpret(rng, add, kw):
+    jspec, pspec = _specs("bfloat16", add, **kw)
+    params = _jax_net(add, **kw)
+    net = _port_net(params, add, dtype=torch.bfloat16, **kw)
+    flat = fused_mlp.flatten_params(pspec, net)
+    w, b, heads = fused_mlp.pack_weights_d(pspec, flat, "cpu")
+    assert w.dtype == torch.bfloat16 and b.dtype == heads.dtype == torch.float32
+    x = rng.uniform(-1, 1, (70, jspec.in_dim)).astype(np.float32)
+    got = _emulate_kernel_d(pspec, w, b, heads, torch.from_numpy(x)).numpy()
+    plain = fused_mlp.reference_forward(pspec, flat, torch.from_numpy(x)).detach().numpy()
+    want = np.asarray(jax_fused._pallas_forward(
+        jspec, jax_fused.flatten_params(jspec, params), jnp.asarray(x), True))
+    # the same roundings in another summation order: one bf16 flip downstream
+    for ref in (plain, want):
+        np.testing.assert_allclose(got, ref, atol=2e-2 * max(1.0, np.abs(ref).max()))
+    assert np.abs(got - plain).mean() < 2e-3 * max(1.0, np.abs(plain).mean())
+
+
+@pytest.mark.parametrize("kw", [{"add": 621, "width": 256, "n_layers": 8, "skips": (4,)},
+                                {"add": 18, "width": 96, "skips": (0, 1)},
+                                {"add": 5, "width": 32, "use_dir": False}])
+def test_kernel_d_pack_round_trips_to_the_common_pack(kw):
+    add = kw.pop("add")
+    _, pspec = _specs("bfloat16", add, **kw)
+    net = _port_net(_jax_net(add, **kw), add, dtype=torch.bfloat16, **kw)
+    flat = fused_mlp.flatten_params(pspec, net)
+    w, _, table = fused_mlp.pack_weights(pspec, flat, "cpu")
+    common = {row[0]: w[int(t[0]):int(t[0]) + int(t[2]) * int(t[3])].view(int(t[2]), int(t[3]))
+              for row, t in zip(fused_mlp.pack_layout(pspec), table)}
+    wd, bd, heads = fused_mlp.pack_weights_d(pspec, flat, "cpu")
+    off = 0
+    for (name, segments, n_real, n_pad), layout in zip(
+            fused_mlp.d_layout(pspec), [l for l in fused_mlp.pack_layout(pspec)
+                                        if l[0] not in ("sigma_out_layer", "rgb_out_layer")]):
+        k_pad = sum(p for _, _, p in segments)
+        full = fused_mlp.swizzle_chunks_inverse(wd[off:off + k_pad * n_pad].view(-1, n_pad, 64))
+        off += k_pad * n_pad
+        r_d = r_c = 0
+        for (src, real, padded), (real_c, padded_c) in zip(segments, layout[1]):
+            assert real == real_c
+            assert torch.equal(full[r_d:r_d + real, :n_real], common[name][r_c:r_c + real])
+            assert not full[r_d + real:r_d + padded].any() and not full[:, n_real:].any()
+            r_d, r_c = r_d + padded, r_c + padded_c
+    assert off == wd.numel()
+    WP = fused_mlp.padded_width(pspec)
+    assert torch.equal(heads[:pspec.width], common["sigma_out_layer"][:, 0].float())
+    assert torch.equal(heads[WP:WP + 3 * (pspec.width // 2)],
+                       common["rgb_out_layer"].float().reshape(-1))
 
 
 # ------------------------------------------------------------------ run dirs

@@ -205,17 +205,26 @@ def test_smpl_nerf_kernel_path_on_cuda_matches_plain_versions_on_cpu(gen, cuda):
 
 # ------------------------------------------------------------------ kernel D
 
-@pytest.mark.parametrize("n_layers,width,pos_f,dir_f,add,skips,use_dir", [
-    (8, 256, 10, 4, 621, (4,), True),    # the configs/config.txt nets
-    (8, 256, 10, 4, 0, (4,), True),
-    (3, 64, 4, 2, 18, (0, 2), False),
-    (2, 32, 1, 1, 5, (), True),
+@pytest.mark.parametrize("n_layers,width,pos_f,dir_f,add,skips,use_dir,rows", [
+    (8, 256, 10, 4, 621, (4,), True, 1000),    # the configs/config.txt nets
+    (8, 256, 10, 4, 0, (4,), True, 1000),
+    (3, 64, 4, 2, 18, (0, 2), False, 1000),
+    (2, 32, 1, 1, 5, (), True, 1000),
+    (8, 256, 10, 4, 621, (4,), True, 1),       # ragged rows: one row, and either side of a tile
+    (8, 256, 10, 4, 621, (4,), True, 127),
+    (3, 256, 10, 4, 621, (1,), True, 129),
+    (8, 256, 10, 4, 621, (4,), True, 131072 + 17),   # 1025 tiles: the persistent grid's tail
+    (3, 256, 10, 4, 622, (1,), True, 300),     # a prefix wider than the old kernel's limit
+    (3, 256, 10, 4, 1200, (0, 1), True, 300),
+    (3, 32, 10, 4, 621, (1,), True, 300),      # the narrowest width at the flagship prefix
+    (2, 160, 10, 12, 40, (0,), True, 20000),   # padded to 256; 157 tiles; 72 dir columns
+    (4, 96, 4, 2, 7, (2,), True, 5000),        # padded to 128
 ])
 def test_fused_v1_kernel_matches_plain(gen, cuda, n_layers, width, pos_f, dir_f, add, skips,
-                                       use_dir):
+                                       use_dir, rows):
     net = _net(cuda, n_layers, width, pos_f, dir_f, skips, use_dir, seed=width + add, add=add)
     spec = fused_mlp.spec_from_model(net)
-    x = torch.from_numpy(gen.uniform(-1, 1, (1000, spec.in_dim)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(gen.uniform(-1, 1, (rows, spec.in_dim)).astype(np.float32)).to(cuda)
     before = fused_mlp.launches
     got = fused_mlp.fused_apply(spec, net, x)
     want = fused_mlp.reference_forward(spec, fused_mlp.flatten_params(spec, net), x)
@@ -233,10 +242,16 @@ def test_fused_v1_wrapper_refuses_what_the_kernel_does_not_take(gen, cuda):
         fused_mlp.fused_apply(spec, net, x.double())
     with pytest.raises(ValueError):
         fused_mlp.fused_apply(spec, net, x[:, :-1].contiguous())
-    with pytest.raises(ValueError, match="shared memory"):
-        wide = RenderRayNet(additional_input_dim=1200, compute_dtype=torch.bfloat16).to(cuda)
-        fused_mlp.fused_apply(fused_mlp.spec_from_model(wide), wide,
-                              torch.zeros(4, 1284, device=cuda))
+    with pytest.raises(ValueError, match="width"):
+        narrow = RenderRayNet(width=48, compute_dtype=torch.bfloat16).to(cuda)
+        fused_mlp.fused_apply(fused_mlp.spec_from_model(narrow), narrow,
+                              torch.zeros(4, 84, device=cuda))
+
+
+@pytest.mark.parametrize("width", [32, 96, 128, 160, 256])
+def test_fused_v1_launches_with_the_shared_memory_the_wrapper_states(cuda, width):
+    spec = fused_mlp.MlpSpec(width=width, additional_input_dim=621)
+    assert fused_mlp._lib().fused_mlp_fwd_shared_bytes(width) == fused_mlp.shared_bytes(spec)
 
 
 def test_mode1_gradient_on_cuda_is_the_plain_versions(gen, cuda):
@@ -539,8 +554,12 @@ def test_expert_serving_through_the_kernel_matches_the_tiled_path_on_cuda(gen, c
 
 # ------------------------------------------------------------------- kernel F
 
-@pytest.mark.parametrize("n,K,N", [(131072, 256, 256), (1000, 64, 128), (4096, 512, 512),
-                                   (300, 1024, 1024), (1, 32, 128)])
+@pytest.mark.parametrize("n,K,N", [
+    (131072, 256, 256), (1000, 64, 128), (4096, 512, 512), (300, 1024, 1024), (1, 32, 128),
+    (127, 256, 256), (129, 96, 384), (131072 + 17, 512, 512),   # ragged rows, a K tail of 32
+    (40000, 32, 128),          # 313 tiles of 128 x 128: the persistent grid's tail
+    (20000, 1024, 1024),       # 628 tiles of 128 x 256 over 132 SMs
+])
 def test_relu_matmul_kernel_matches_plain(gen, cuda, n, K, N):
     x = torch.tensor(gen.randn(n, K).astype(np.float32), device=cuda).to(torch.bfloat16)
     w = torch.tensor((0.05 * gen.randn(K, N)).astype(np.float32), device=cuda).to(torch.bfloat16)

@@ -70,6 +70,15 @@ def test_relu_matmul_kernel_limits_are_stated():
     assert relu_matmul.kernel_supports(1024, 1024) == ""
     assert "multiple of" in relu_matmul.kernel_supports(48, 128)
     assert "multiple of" in relu_matmul.kernel_supports(64, 96)
+    # the persistent grid walks tiles: rows are bounded only by int32 TMA coordinates
+    assert relu_matmul.MAX_ROWS == 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("K", [32, 64, 96, 160, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("N", [128, 256, 384, 512, 1024, 1152])
+def test_relu_matmul_kernel_takes_every_shape_the_first_kernel_took(K, N):
+    # the first kernel F took K a multiple of 32 and N a multiple of 128
+    assert relu_matmul.kernel_supports(K, N) == ""
 
 
 def test_roofline_main_runs_both_parts_on_the_cpu(capsys):
