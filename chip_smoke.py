@@ -15,9 +15,11 @@ unguarded, so that any failure exits non-zero:
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, with CUDA-event times (median of 20) of both and the
      least time the card could take for the same work: A (sample_pdf), B
-     (fused v2 forward), D (fused v1 forward, the configs/config.txt net with
-     its 621-wide pose prefix, at 131,072 and 262,144 rows), C (fused v2
-     backward, seeded cotangent), E
+     (fused v2 forward, at 131,072 and 393,216 rows: the coarse and the fine
+     call of a 2048-ray batch), D (fused v1 forward, the configs/config.txt
+     net with its 621-wide pose prefix, at 131,072 and 262,144 rows), C (fused
+     v2 backward, seeded cotangent, at 131,072 and 393,216 rows, run twice to
+     hold its determinism, with its workspace's peak bytes), E
      (fused expert tiles: seeded sorted-tile plans with padding slots and empty
      trailing tiles at E=8000, L=413,696 and at E_occ=329, L=57,344, D=42,
      H=32, O=4, tile 256, in bf16 and in float32; its headline numbers come
@@ -84,9 +86,11 @@ Tolerances, each with its reason:
     mask flips where the two forwards put an activation on either side of
     0, which moves one row's dX by a whole term: dX max |err| <= 0.25 * max
     |plain| and mean |err| <= 5e-3 * mean |plain|. Every dW and db is a sum
-    over all rows, where such flips average out: ||kernel - plain|| <= 3e-2 *
-    ||plain||. The kernel adds dW with float32 atomics in an order that
-    changes from run to run (~1e-6 relative), far inside that bound.
+    over all rows, where such flips average out, and the kernel rounds dW to
+    bf16 per 256-row slice (as the JAX kernel's tiles) where the plain version
+    rounds once: ||kernel - plain|| <= 3e-2 * ||plain||. The kernel sums with
+    no atomics, in a fixed order, so two runs on the same inputs must agree
+    bit for bit (dX, every dW and db).
   * fused expert tiles (kernel E): in float32 the kernel and its plain
     version differ only in summation order: max |err| <= 2e-5 * max(1, max
     |plain|). In bf16 both round the encoding, the weights and the hidden
@@ -137,6 +141,7 @@ PEAK_BYTES_PER_S = 3.35e12
 
 PDF_R, PDF_K, PDF_F = 2048, 63, 128          # one 2048-ray batch, 64 coarse -> 63 mids
 MLP_ROWS = 2048 * 64                          # one coarse batch of rows
+FINE_ROWS = 2048 * (64 + 128)                 # one fine batch (coarse + fine samples)
 VIEWS, RES, BATCH, POSE_ANGLE = 2, 128, 2048, 20.0
 MLP_ERR_MAX, MLP_ERR_MEAN = 2e-2, 2e-3
 PDF_OFF_SHARE = 5e-3
@@ -264,11 +269,11 @@ def full_width_net(device, seed: int, additional_input_dim: int = 0):
     return net.to(device).requires_grad_(False)
 
 
-def raw_rows(device, seed: int) -> torch.Tensor:
-    """[MLP_ROWS, 6] raw rows: xyz in the scene's box, unit directions."""
+def raw_rows(device, seed: int, rows: int = MLP_ROWS) -> torch.Tensor:
+    """[rows, 6] raw rows: xyz in the scene's box, unit directions."""
     g = torch.Generator(device=device).manual_seed(seed)
-    xyz = 3.0 * torch.rand(MLP_ROWS, 3, generator=g, device=device) - 1.5
-    dirs = torch.randn(MLP_ROWS, 3, generator=g, device=device)
+    xyz = 3.0 * torch.rand(rows, 3, generator=g, device=device) - 1.5
+    dirs = torch.randn(rows, 3, generator=g, device=device)
     return torch.cat([xyz, dirs / dirs.norm(dim=-1, keepdim=True)], -1).contiguous()
 
 
@@ -286,33 +291,41 @@ def forward_parity(name: str, got, want) -> tuple:
 
 
 def phase_fused_mlp(device) -> dict:
+    """Kernel B at the two batch sizes of a step and of a render batch:
+    131,072 rows (the coarse call, the entry's headline) and 393,216 (fine)."""
     from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2
 
     net = full_width_net(device, seed=1)
     spec = fused_mlp.spec_from_model(net)
     flat = fused_mlp.flatten_params(spec, net)
-    x = raw_rows(device, seed=2)
-    with torch.no_grad():
-        got = fused_mlp_v2.fused_forward_cuda(spec, net, x)
-        want = fused_mlp_v2.reference_forward_raw(spec, flat, x)
-    torch.cuda.synchronize()
-    print(f"kernel B fused_mlp_v2_fwd N={MLP_ROWS} W={spec.width} layers={spec.n_layers} "
-          f"skips={spec.skips} bf16:")
-    max_err, rel_err = forward_parity("fused v2", got, want)
-    with torch.no_grad():
-        ms = time_ms(lambda: fused_mlp_v2.fused_forward_cuda(spec, net, x))
-        plain_ms = time_ms(lambda: fused_mlp_v2.reference_forward_raw(spec, flat, x))
-    flops = 2 * mlp_macs(spec) * MLP_ROWS
-    bytes_moved = MLP_ROWS * (6 + 4) * 4 + sum(p.numel() for p in flat) * 2
-    bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
-    print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s bf16; {mlp_macs(spec)} MAC/sample)")
+    by_rows = {}
+    for rows in (MLP_ROWS, FINE_ROWS):
+        x = raw_rows(device, seed=2, rows=rows)
+        with torch.no_grad():
+            got = fused_mlp_v2.fused_forward_cuda(spec, net, x)
+            want = fused_mlp_v2.reference_forward_raw(spec, flat, x)
+        torch.cuda.synchronize()
+        print(f"kernel B fused_mlp_v2_fwd N={rows} W={spec.width} layers={spec.n_layers} "
+              f"skips={spec.skips} bf16, {fused_mlp_v2.shared_bytes(spec)} B shared memory per "
+              f"block:")
+        max_err, rel_err = forward_parity("fused v2", got, want)
+        with torch.no_grad():
+            ms = time_ms(lambda: fused_mlp_v2.fused_forward_cuda(spec, net, x))
+            plain_ms = time_ms(lambda: fused_mlp_v2.reference_forward_raw(spec, flat, x))
+        flops = 2 * mlp_macs(spec) * rows
+        bytes_moved = rows * (6 + 4) * 4 + sum(p.numel() for p in flat) * 2
+        ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * bytes_moved / PEAK_BYTES_PER_S
+        print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound by operations "
+              f"{ops_ms:.5f} ms ({flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s bf16; "
+              f"{mlp_macs(spec)} MAC/sample), by bytes {bytes_ms:.5f} ms, "
+              f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
+        by_rows[str(rows)] = {"max_abs_err": max_err, "rel_err": rel_err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
     return {"name": "fused_mlp_v2_fwd", "route": "cuda",
             "source": "smpl_nerf_tpu_torch/csrc/fused_mlp_v2_fwd.cu",
-            "replaces": "smpl_nerf_tpu/ops/fused_mlp_v2.py:128",
-            "max_abs_err": max_err, "rel_err": rel_err, "parity_ok": True,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "operations",
-            "library_ms": None}
+            "replaces": "smpl_nerf_tpu/ops/fused_mlp_v2.py:128", "parity_ok": True,
+            **by_rows[str(MLP_ROWS)], "library_ms": None, "by_rows": by_rows}
 
 
 def phase_fused_mlp_v1(device) -> dict:
@@ -359,47 +372,67 @@ def phase_fused_mlp_v1(device) -> dict:
 
 
 def phase_fused_bwd(device) -> dict:
-    """Kernel C against autograd through the plain forward, seeded cotangent."""
+    """Kernel C against autograd through the plain forward, seeded cotangent,
+    at 131,072 and 393,216 rows (a step's two calls); each run twice, which
+    must give the same bits."""
     from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2
 
     net = full_width_net(device, seed=5)
     spec = fused_mlp.spec_from_model(net)
     flat = fused_mlp.flatten_params(spec, net)
-    x = raw_rows(device, seed=6)
-    gen = torch.Generator(device=device).manual_seed(7)
-    # the cotangent of a mean loss over the rows
-    g = torch.randn(MLP_ROWS, 4, generator=gen, device=device) / MLP_ROWS
-    dflat, dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
-    want_flat, want_dx = fused_mlp_v2.reference_backward_raw(spec, flat, x, g)
-    torch.cuda.synchronize()
-    err = (dx - want_dx).abs()
-    max_err, mean_err = float(err.max()), float(err.mean())
-    scale_max, scale_mean = float(want_dx.abs().max()), float(want_dx.abs().mean())
-    rels = [float((a - b).norm() / b.norm()) for a, b in zip(dflat, want_flat)]
-    print(f"kernel C fused_mlp_v2_bwd N={MLP_ROWS} W={spec.width} layers={spec.n_layers} bf16: "
-          f"dX max|err|={max_err:.3e} (rel {max_err / scale_max:.3e}, bound {BWD_DX_MAX}), "
-          f"mean|err|={mean_err:.3e} (rel {mean_err / scale_mean:.3e}, bound {BWD_DX_MEAN}); "
-          f"dW/db worst ||err||/||plain||={max(rels):.3e} over {len(rels)} tensors "
-          f"(bound {BWD_DW_REL})")
-    check(all(bool(torch.isfinite(t).all()) for t in (dx, *dflat)),
-          "fused v2 backward kernel gave non-finite gradients")
-    check(max_err <= BWD_DX_MAX * scale_max and mean_err <= BWD_DX_MEAN * scale_mean
-          and max(rels) <= BWD_DW_REL, "fused v2 backward kernel disagrees with its plain version")
-    ms = time_ms(lambda: fused_mlp_v2.fused_backward_cuda(spec, net, x, g))
-    plain_ms = time_ms(lambda: fused_mlp_v2.reference_backward_raw(spec, flat, x, g), reps=5)
     n_params = sum(p.numel() for p in flat)
-    flops = 3 * 2 * mlp_macs(spec) * MLP_ROWS          # recompute, dH chain, dW
-    bytes_moved = MLP_ROWS * (6 + 4 + 6) * 4 + n_params * (2 + 4)
-    bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
-    print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s bf16)")
+    by_rows = {}
+    for rows in (MLP_ROWS, FINE_ROWS):
+        x = raw_rows(device, seed=6, rows=rows)
+        gen = torch.Generator(device=device).manual_seed(7)
+        # the cotangent of a mean loss over the rows
+        g = torch.randn(rows, 4, generator=gen, device=device) / rows
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dflat, dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        again_flat, again_dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
+        want_flat, want_dx = fused_mlp_v2.reference_backward_raw(spec, flat, x, g)
+        torch.cuda.synchronize()
+        same = torch.equal(dx, again_dx) and all(torch.equal(a, b)
+                                                 for a, b in zip(dflat, again_flat))
+        err = (dx - want_dx).abs()
+        max_err, mean_err = float(err.max()), float(err.mean())
+        scale_max, scale_mean = float(want_dx.abs().max()), float(want_dx.abs().mean())
+        rels = [float((a - b).norm() / b.norm()) for a, b in zip(dflat, want_flat)]
+        workspace = fused_mlp_v2.workspace_bytes(spec, rows)
+        print(f"kernel C fused_mlp_v2_bwd N={rows} W={spec.width} layers={spec.n_layers} bf16: "
+              f"dX max|err|={max_err:.3e} (rel {max_err / scale_max:.3e}, bound {BWD_DX_MAX}), "
+              f"mean|err|={mean_err:.3e} (rel {mean_err / scale_mean:.3e}, bound "
+              f"{BWD_DX_MEAN}); dW/db worst ||err||/||plain||={max(rels):.3e} over {len(rels)} "
+              f"tensors (bound {BWD_DW_REL}); two runs bit-identical: {same}; workspace "
+              f"{workspace} B, peak allocated during the call {peak} B")
+        check(all(bool(torch.isfinite(t).all()) for t in (dx, *dflat)),
+              "fused v2 backward kernel gave non-finite gradients")
+        check(max_err <= BWD_DX_MAX * scale_max and mean_err <= BWD_DX_MEAN * scale_mean
+              and max(rels) <= BWD_DW_REL,
+              "fused v2 backward kernel disagrees with its plain version")
+        check(same, "fused v2 backward kernel is not bit-identical from run to run")
+        del again_flat, again_dx, want_flat, want_dx
+        ms = time_ms(lambda: fused_mlp_v2.fused_backward_cuda(spec, net, x, g))
+        plain_ms = time_ms(lambda: fused_mlp_v2.reference_backward_raw(spec, flat, x, g), reps=5)
+        flops = 3 * 2 * mlp_macs(spec) * rows          # recompute, dH chain, dW
+        bytes_moved = rows * (6 + 4 + 6) * 4 + n_params * (2 + 4)
+        ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * bytes_moved / PEAK_BYTES_PER_S
+        print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound by operations "
+              f"{ops_ms:.5f} ms ({flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s bf16), by "
+              f"bytes {bytes_ms:.5f} ms, {100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
+        by_rows[str(rows)] = {"max_abs_err": max_err, "rel_err": max_err / scale_max,
+                              "dw_rel_err": max(rels), "bit_identical": same,
+                              "workspace_bytes": workspace, "peak_bytes": peak, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
     return {"name": "fused_mlp_v2_bwd", "route": "cuda",
             "source": "smpl_nerf_tpu_torch/csrc/fused_mlp_v2_bwd.cu",
-            "replaces": "smpl_nerf_tpu/ops/fused_mlp_v2.py:157",
-            "max_abs_err": max_err, "rel_err": max_err / scale_max,
-            "dw_rel_err": max(rels), "parity_ok": True,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "operations",
-            "library_ms": None}
+            "replaces": "smpl_nerf_tpu/ops/fused_mlp_v2.py:157", "parity_ok": True,
+            **by_rows[str(MLP_ROWS)], "library_ms": None, "by_rows": by_rows}
 
 
 def expert_plan_inputs(device, seed: int, n_experts: int, touched: int, mean_count: float,
@@ -622,12 +655,15 @@ def phase_render(tmp: str, what: str, config_file: str, kernel_flags: tuple, ext
     return counts, kernel_run
 
 
-KERNEL_SYMBOLS = (("sample_pdf", "sample_pdf_kernel"),
-                  ("fused_mlp_v2_fwd", "fused_mlp_v2_fwd_kernel"),
-                  ("fused_mlp_fwd", "fused_mlp_fwd_kernel"),
-                  ("fused_mlp_v2_bwd", "fused_mlp_v2_bwd_kernel"),
-                  ("expert_tiles", "expert_tiles_kernel"),
-                  ("relu_matmul", "relu_matmul_kernel"))
+# per wrapper: the device kernels of one launch (C's launch runs three; the
+# first one counts the launches)
+KERNEL_SYMBOLS = (("sample_pdf", ("sample_pdf_kernel",)),
+                  ("fused_mlp_v2_fwd", ("fused_mlp_v2_fwd_kernel",)),
+                  ("fused_mlp_fwd", ("fused_mlp_fwd_kernel",)),
+                  ("fused_mlp_v2_bwd", ("fused_mlp_v2_bwd_kernel", "fused_mlp_v2_dw_kernel",
+                                        "fused_mlp_v2_dw_reduce_kernel")),
+                  ("expert_tiles", ("expert_tiles_kernel",)),
+                  ("relu_matmul", ("relu_matmul_kernel",)))
 
 
 def profiled(what: str, fn) -> dict:
@@ -653,10 +689,11 @@ def profiled(what: str, fn) -> dict:
     for key, count, us in rows[:10]:
         print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
     device_ms = {}
-    for name, symbol in KERNEL_SYMBOLS:
-        hits = [(c, us) for key, c, us in rows if symbol in key]
-        if hits:
-            device_ms[name] = sum(us for _, us in hits) / 1e3 / sum(c for c, _ in hits)
+    for name, symbols in KERNEL_SYMBOLS:
+        launches = sum(c for key, c, _ in rows if symbols[0] in key)
+        if launches:
+            us = sum(us for key, _, us in rows if any(sym in key for sym in symbols))
+            device_ms[name] = us / 1e3 / launches
     print(f"profile: device ms per launch {device_ms}")
     return device_ms
 

@@ -1,5 +1,6 @@
 // Fused RenderRayNet v2 forward on Hopper (sm_90a): in-kernel encoding + the
-// whole MLP per 64-row tile, bf16 tensor-core products with float32 accumulation.
+// whole MLP per 128-row tile, bf16 tensor-core products (wgmma) with float32
+// accumulation.
 //
 // Replaces the TPU kernel smpl_nerf_tpu/ops/fused_mlp_v2.py:_pallas_forward
 // (math in `_tile_forward`). Plain version:
@@ -18,89 +19,28 @@
 // What bounds it on the H100: tensor-core operations. At W=256, 8 layers,
 // skip at 4, 60/24 encoded dims, one sample costs 607,872 multiply-adds and
 // moves 40 bytes (6 floats in, 4 out): ~30,000 operations per byte, a hundred
-// times past the bf16 ridge point.
+// times past the bf16 ridge point. Beside them, every 128-row tile streams the
+// whole weight set (1.2 MB) from L2: ~1.2 GB per 131,072 rows.
 //
-// Why the weights stream instead of staying resident: the TPU kernel holds
-// all weights (~1.2 MB bf16 at W=256) in its 16 MB VMEM. A Hopper block has
-// at most 227 KB of shared memory. So a block keeps only its 64-row tile's
-// activations (two ping-pong bf16 buffers, the encodings) in shared memory
-// and streams each layer's [K, N] weights through a 32-row shared buffer;
-// across the ~thousands of blocks the weights stay hot in the 50 MB L2. The
-// skip and direction concatenations are never materialised: a K-chunk's A
-// operand comes from the activation buffer or from the encoding buffer.
-// Rows are padded by 8 bf16 against shared-memory bank conflicts. ~107 KB of
-// shared memory per block lets two blocks share an SM.
-//
-// This is the simple, correct first version: products use `nvcuda::wmma`
-// 16x16x16 (mma.sync), not `wgmma`, and weight loads are not overlapped with
-// the products (no cp.async / TMA pipeline yet). The dense layer, the heads
-// and the encoding live in fused_mlp_common.cuh, shared with the v1 forward
-// and the v2 backward.
-#include "fused_mlp_common.cuh"
-
-using namespace fused_mlp;
+// Design: the mainloop of render_net.cuh, the one kernel D runs (persistent
+// 128-row tiles, pack_weights_d's chunks through an mbarrier ring, two
+// consumer warpgroups on wgmma with the activations in registers, float32
+// heads). Only the A chunks of the pos and dir blocks differ (EncodeSrc): the
+// producer thread that owns a row of the tile holds its six raw floats in
+// registers (the next tile's are loaded meanwhile) and writes
+// bf16(sinf(encoding_arg)) of the chunk's 64 columns into the swizzled A
+// chunk, for the first layer, each skip layer and directional_input. The
+// encodings never exist in device memory, and x is read once.
+// sinf, never __sinf: the argument reaches 2^(L-1) * |x|.
+#include "render_net.cuh"
 
 namespace {
 
-struct Dims {
-  int W, P, Ppad, D, Dpad, lda, ldp, ldd;
-  size_t off_act_a, off_act_b, off_pos, off_dir, off_w, off_scratch, off_out, off_raw, total;
-};
+using namespace render_net;
 
-__host__ __device__ inline Dims make_dims(int W, int pos_freqs, int dir_freqs) {
-  Dims d;
-  d.W = W;
-  d.P = 6 * pos_freqs;
-  d.Ppad = round16(d.P);
-  d.D = 6 * dir_freqs;
-  d.Dpad = round16(d.D);
-  d.lda = W + kPadCols;
-  d.ldp = d.Ppad + kPadCols;
-  d.ldd = d.Dpad + kPadCols;
-  size_t o = 0;
-  d.off_act_a = o;   o = align128(o + sizeof(bf16) * kTile * d.lda);
-  d.off_act_b = o;   o = align128(o + sizeof(bf16) * kTile * d.lda);
-  d.off_pos = o;     o = align128(o + sizeof(bf16) * kTile * d.ldp);
-  d.off_dir = o;     o = align128(o + sizeof(bf16) * kTile * d.ldd);
-  d.off_w = o;       o = align128(o + sizeof(bf16) * kChunk * (W + kPadCols));
-  d.off_scratch = o; o = align128(o + sizeof(float) * kWarps * 256);
-  d.off_out = o;     o = align128(o + sizeof(float) * kTile * 4);
-  d.off_raw = o;     o = align128(o + sizeof(float) * kTile * 6);
-  d.total = o;
-  return d;
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-fused_mlp_v2_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
-                        const bf16* __restrict__ wts, const float* __restrict__ bias,
-                        const int* __restrict__ table, int N, int n_layers, int W,
-                        int pos_freqs, int dir_freqs, unsigned skip_mask, int use_dir) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Dims d = make_dims(W, pos_freqs, dir_freqs);
-  bf16* cur = reinterpret_cast<bf16*>(smem + d.off_act_a);
-  bf16* nxt = reinterpret_cast<bf16*>(smem + d.off_act_b);
-  bf16* pos = reinterpret_cast<bf16*>(smem + d.off_pos);
-  bf16* dir = reinterpret_cast<bf16*>(smem + d.off_dir);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + d.off_w);
-  float* scratch = reinterpret_cast<float*>(smem + d.off_scratch) + (threadIdx.x >> 5) * 256;
-  float* outT = reinterpret_cast<float*>(smem + d.off_out);
-  float* raw = reinterpret_cast<float*>(smem + d.off_raw);
-  const int row0 = blockIdx.x * kTile;
-
-  // raw rows of the tile; the ragged last tile reads zeros and stores nothing
-  for (int i = threadIdx.x; i < kTile * 6; i += kThreads)
-    raw[i] = (row0 + i / 6 < N) ? x[(size_t)row0 * 6 + i] : 0.f;
-  __syncthreads();
-  encode(raw, 0, pos_freqs, d.Ppad, pos, d.ldp);
-  encode(raw, 3, dir_freqs, d.Dpad, dir, d.ldd);
-  __syncthreads();
-
-  const Seg pos_seg = {pos, d.ldp, d.Ppad};
-  const Seg dir_seg = {dir, d.ldd, use_dir ? d.Dpad : 0};
-  net_forward(pos_seg, dir_seg, cur, nxt, d.lda, wts, bias, table, n_layers, W, skip_mask, wbuf,
-              scratch, outT);
-  for (int i = threadIdx.x; i < kTile * 4; i += kThreads)
-    if (row0 + i / 4 < N) y[(size_t)row0 * 4 + i] = outT[i];
+template <int WP>
+__global__ void __launch_bounds__(kThreads, 1) fused_mlp_v2_fwd_kernel(const Net p) {
+  forward_body<WP, EncodeSrc>(p);
 }
 
 }  // namespace
@@ -108,26 +48,41 @@ fused_mlp_v2_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
 extern "C" {
 
 // x [N, 6] float32 raw rows (xyz || unit dir), y [N, 4] float32 (rgb || sigma).
-// w/b/table: the weight pack of ops/fused_mlp.py:pack_weights. W must be a
-// multiple of 32 in [32, 256]. Returns the CUDA error of the launch (0 on success).
+// w / b / heads: the pack of ops/fused_mlp.py:pack_weights_d (kernel D's) for
+// a net without prefix. W a multiple of 32 in [32, 256], N >= 1. Returns the
+// CUDA error of the launch (0 on success).
 int fused_mlp_v2_fwd_launch(const float* x, float* y, const void* w, const float* b,
-                            const int* table, int N, int n_layers, int W, int pos_freqs,
+                            const float* heads, int N, int n_layers, int W, int pos_freqs,
                             int dir_freqs, unsigned skip_mask, int use_dir,
                             cudaStream_t stream) {
-  const Dims d = make_dims(W, pos_freqs, dir_freqs);
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_v2_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)d.total);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + kTile - 1) / kTile;
-  fused_mlp_v2_fwd_kernel<<<blocks, kThreads, d.total, stream>>>(
-      x, y, static_cast<const bf16*>(w), b, table, N, n_layers, W, pos_freqs, dir_freqs,
-      skip_mask, use_dir);
-  return (int)cudaGetLastError();
+  Net p;
+  p.x = x;
+  p.y = y;
+  p.w = static_cast<const unsigned char*>(w);
+  p.bias = b;
+  p.heads = heads;
+  p.N = N;
+  p.n_layers = n_layers;
+  p.pos_block = 6 * pos_freqs;
+  p.dir_dim = 6 * dir_freqs;
+  p.in_dim = 6;
+  p.P = (p.pos_block + kChunkK - 1) / kChunkK;
+  p.Dc = (p.dir_dim + kChunkK - 1) / kChunkK;
+  p.skip_mask = skip_mask;
+  p.use_dir = use_dir;
+  p.enc_out = nullptr;
+  p.enc_ld = 0;
+  const int tiles = (N + kTileRows - 1) / kTileRows;
+  return padded_width(W) == 256
+             ? launch_persistent(fused_mlp_v2_fwd_kernel<256>, Cfg<256, 0>::kSmem, tiles, stream, p)
+             : launch_persistent(fused_mlp_v2_fwd_kernel<128>, Cfg<128, 0>::kSmem, tiles, stream, p);
 }
 
-const char* kernel_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+// Dynamic shared memory the launch asks for, for a W-wide net.
+int fused_mlp_v2_fwd_shared_bytes(int W) {
+  return padded_width(W) == 256 ? Cfg<256, 0>::kSmem : Cfg<128, 0>::kSmem;
 }
+
+const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 }  // extern "C"

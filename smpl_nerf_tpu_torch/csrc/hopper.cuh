@@ -2,7 +2,8 @@
 // package share: mbarriers, bulk and tensor (TMA) copies, 4-byte cp.async,
 // the async-proxy fence, wgmma descriptors and instructions, and register
 // reallocation, plus the host's TMA descriptor encoder. Used by
-// relu_matmul.cu (kernel F) and fused_mlp_fwd.cu (kernel D). Each device
+// relu_matmul.cu (kernel F) and, through render_net.cuh, by fused_mlp_fwd.cu
+// (kernel D), fused_mlp_v2_fwd.cu (B) and fused_mlp_v2_bwd.cu (C). Each device
 // wrapper emits the PTX instruction its comment names and nothing more
 // (mbar_wait loops on try_wait, with a watchdog).
 //
@@ -233,8 +234,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 16 s .. 16 s + 15: {d pair j = 2 s, row 1}, {j = 2 s, row 2},
 // {j = 2 s + 1, row 1}, {j = 2 s + 1, row 2}, each packed to two bf16.
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B in shared memory.
-template <int TRANS_B>
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B in shared memory; TRANS_A = 1
+// reads A M-major (its MN-major descriptor, as for B).
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
   asm volatile(
@@ -243,14 +245,14 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A in registers (a[0..3], the
@@ -275,7 +277,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory.
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
   asm volatile(
@@ -286,7 +288,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a, uint64_
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -298,7 +300,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a, uint64_
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A in registers (a[0..3], the
@@ -330,7 +332,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
 }
 
 // D[64 x 256] (+)= A[64 x 16] * B[16 x 256], A and B in shared memory.
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
   asm volatile(
@@ -345,7 +347,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t desc_a, uint64_
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -368,7 +370,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t desc_a, uint64_
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 256] (+)= A[64 x 16] * B[16 x 256], A in registers (a[0..3], the
@@ -415,13 +417,13 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
 }
 
 // wgmma by N at compile time.
-template <int N, int TRANS_B>
+template <int N, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma widths written out: 64, 128, 256");
-  if constexpr (N == 256) wgmma_ss_n256<TRANS_B>(d, desc_a, desc_b, scale_d);
-  else if constexpr (N == 128) wgmma_ss_n128<TRANS_B>(d, desc_a, desc_b, scale_d);
-  else wgmma_ss_n64<TRANS_B>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 256) wgmma_ss_n256<TRANS_B, TRANS_A>(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 128) wgmma_ss_n128<TRANS_B, TRANS_A>(d, desc_a, desc_b, scale_d);
+  else wgmma_ss_n64<TRANS_B, TRANS_A>(d, desc_a, desc_b, scale_d);
 }
 
 template <int N, int TRANS_B>

@@ -25,9 +25,12 @@ The gradient follows the JAX package, whose v1 backward is no kernel but
 Function whose forward launches the kernel and whose backward differentiates
 `reference_forward` with torch ops.
 
-`pack_weights` builds the weight pack kernels B and C read; `pack_weights_d`
-kernel D's own. Both are cached on the module by `packed` and rebuilt when a
-parameter changes (an optimizer step bumps the parameters' `_version`).
+`pack_weights_d` builds the weight pack kernels B, C and D read (64-row chunk
+images in the byte order wgmma reads); `pack_weights` the plain [K, N]
+layout (`pack_layout`) that the tests hold it against. Packs are cached on
+the module by `packed` and rebuilt when a parameter changes (an optimizer
+step bumps the parameters' `_version`). `unpack_grads_d` turns kernel C's
+gradient buffer back into flat pairs.
 """
 from __future__ import annotations
 
@@ -42,8 +45,7 @@ from smpl_nerf_tpu_torch.ops import _build
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-TILE_ROWS = 64            # rows per block; kTile in csrc/fused_mlp_common.cuh
-MAX_WIDTH = 256           # 16 n-tiles of 16 over 8 warps
+MAX_WIDTH = 256           # the widest padded width of csrc/render_net.cuh
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one Hopper block can ask for
 launches = 0
 
@@ -191,7 +193,8 @@ def pack_layout(spec: MlpSpec) -> List[tuple]:
 
 
 def pack_weights(spec: MlpSpec, flat, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(weights bf16 [total], biases f32 [total], table int32 [L, 4]) on `device`.
+    """(weights bf16 [total], biases f32 [total], table int32 [L, 4]) on `device`:
+    the plain layout `pack_weights_d` is checked against.
 
     Each kernel is [K, N] row-major with the rows of `pack_layout`; table row
     = (weight offset, bias offset, K, N) in elements. The padding and casts
@@ -263,7 +266,7 @@ def topology_reason(spec: MlpSpec) -> str:
 
 # ------------------------------------------------------------------- kernel D
 
-D_TILE_ROWS = 128          # rows per tile of csrc/fused_mlp_fwd.cu (two warpgroups of 64)
+D_TILE_ROWS = 128          # rows per tile of csrc/render_net.cuh (two warpgroups of 64)
 D_CHUNK = 64               # weight rows per streamed chunk, x columns per A chunk
 
 
@@ -277,7 +280,8 @@ def _round64(n: int) -> int:
 
 
 def d_layout(spec: MlpSpec) -> List[tuple]:
-    """[(name, segments, N, N padded)] of the dense layers in kernel D's order.
+    """[(name, segments, N, N padded)] of the dense layers in the order of
+    csrc/render_net.cuh (kernels B, C and D).
 
     `segments` are (source, real rows, padded rows) of the layer's K in the
     order the kernel streams them: "act" (the previous layer's activations,
@@ -324,16 +328,16 @@ def swizzle_chunks_inverse(images: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weights_d(spec: MlpSpec, flat, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel D's own pack: (chunk images bf16 [total], biases f32 [total],
-    heads f32 [WP + 3 WP / 2 + 4]) on `device`.
+    """The pack of kernels B, C and D: (chunk images bf16 [total], biases f32
+    [total], heads f32 [WP + 3 WP / 2 + 4]) on `device`. Without a prefix, the
+    "pos" block is the positional encoding and "dir" the directional one.
 
     Every dense layer of `d_layout`, in order, as `swizzle_chunks` images of
     its zero-padded [K, N padded] kernel, so one bulk copy lands a chunk in
     the layout wgmma reads; biases zero-padded to N padded. Heads: the
     sigma_out_layer column [WP], rgb_out_layer [WP / 2, 3] (both rounded to
     bf16, as the plain version rounds them), then the rgb and sigma biases.
-    Built from the same `flatten_params` as `pack_weights`, whose layout
-    kernels B and C read and which stays as it is.
+    Built from the same `flatten_params` as `pack_weights`.
     """
     it = iter(flat)
     layers = {name: (next(it), next(it)) for name in _param_order(spec)}
@@ -365,8 +369,44 @@ def pack_weights_d(spec: MlpSpec, flat, device) -> Tuple[torch.Tensor, torch.Ten
     return (torch.cat(w_parts).to(device), torch.cat(b_parts).to(device), heads.to(device))
 
 
+def unpack_grads_d(spec: MlpSpec, grads: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Kernel C's gradient buffer (float32: every dense layer of `d_layout` as
+    a plain [K padded, N padded] block, then each layer's padded db, then the
+    heads as in `pack_weights_d`) -> flat (d kernel [in, out], d bias) pairs
+    in `_param_order`, padding dropped."""
+    WP, W = padded_width(spec), spec.width
+    layout = d_layout(spec)
+    grads_by_name, blocks, off = {}, [], 0
+    for name, segments, n_real, n_pad in layout:
+        k_pad = sum(padded for _, _, padded in segments)
+        blocks.append(grads[off:off + k_pad * n_pad].view(k_pad, n_pad))
+        off += k_pad * n_pad
+    for (name, segments, n_real, n_pad), block in zip(layout, blocks):
+        rows, r = [], 0
+        for _, real, padded in segments:
+            rows.append(block[r:r + real, :n_real])
+            r += padded
+        grads_by_name[name] = (rows[0] if len(rows) == 1 else torch.cat(rows),
+                               grads[off:off + n_real])
+        off += n_pad
+    heads = grads[off:]
+    grads_by_name["sigma_out_layer"] = (heads[:W, None], heads[-1:])
+    grads_by_name["rgb_out_layer"] = (heads[WP:WP + 3 * (WP // 2)].view(WP // 2, 3)[:W // 2],
+                                      heads[WP + 3 * (WP // 2):WP + 3 * (WP // 2) + 3])
+    return tuple(t for name in _param_order(spec) for t in grads_by_name[name])
+
+
+@functools.lru_cache(maxsize=None)
+def grad_count_d(spec: MlpSpec) -> int:
+    """Length of kernel C's float32 gradient buffer (see `unpack_grads_d`)."""
+    WP = padded_width(spec)
+    dense = sum(sum(padded for _, _, padded in segments) * n_pad + n_pad
+                for _, segments, _, n_pad in d_layout(spec))
+    return dense + WP + 3 * (WP // 2) + 4
+
+
 def shared_bytes(spec: MlpSpec) -> int:
-    """Dynamic shared memory of one block of csrc/fused_mlp_fwd.cu (its Cfg):
+    """Dynamic shared memory of one block of kernel D (render_net.cuh's Cfg):
     a ring of 3 (padded width 256) or 4 (128) stages of one weight chunk and
     one 128 x 64 bf16 A chunk of x, two 128 x 64 float32 landing slots for x,
     the mbarriers and 1024 B of alignment slack. The prefix, the directions

@@ -1,8 +1,8 @@
-"""Fused RenderRayNet v2 forward: encoding inside the kernel (csrc/fused_mlp_v2_fwd.cu).
+"""Fused RenderRayNet v2: encoding inside the kernel (csrc/fused_mlp_v2_fwd.cu).
 
 Replaces the TPU kernel smpl_nerf_tpu/ops/fused_mlp_v2.py:_pallas_forward.
 The kernel reads raw rows [xyz(3) || unit dir(3)] (24 B per sample), builds
-both encodings in shared memory as
+both encodings as
 
     enc(x) = sin(x @ M + P),  M[d, 2L*d] with 2^k on the (j mod d) row,
     P = 0 for sin blocks, pi/2 for cos blocks   (cos(t) == sin(t + pi/2))
@@ -16,22 +16,26 @@ What bounds it on the H100: tensor-core operations. The W=256 net costs
 607,872 multiply-adds per sample against 40 bytes of input and output, far
 above the ~295 operations per byte where bf16 matmuls stop being memory-bound.
 
-Why the weights stream: the TPU kernel keeps every weight resident in a 16 MB
-VMEM. An H100 SM has 227 KB of shared memory and the W=256 net is ~1.2 MB in
-bf16, so here a block owns a 64-row tile, keeps only its activations in shared
-memory, and streams each layer's weights through shared memory in 32-row
-K-chunks (they stay hot in the 50 MB L2 across blocks). The wrapper packs the
-weights once per model (transposed to [K, N] bf16, K zero-padded to a
-multiple of 16) and caches the pack on the module.
+Design (csrc/render_net.cuh, the mainloop kernel D runs too): the TPU kernel
+keeps every weight resident in a 16 MB VMEM; an H100 SM has 227 KB of shared
+memory, so a persistent block walks 128-row tiles and streams the weights
+from L2 as the 64-row chunk images of `pack_weights_d` through an mbarrier
+ring, while two consumer warpgroups run wgmma with the activations in
+registers. The producer warpgroup encodes each tile's raw rows into the A
+chunks of the layers that read the encodings. The pack is built once per
+model and cached on the module.
 
 `FusedMlpV2` is the autograd Function of `--use_fused_mlp=2` on the card:
 forward kernel B, backward kernel C (csrc/fused_mlp_v2_bwd.cu, replacing the
-TPU kernel `_pallas_backward`): per tile it rebuilds the forward, walks the
-layers backwards on tensor cores, writes dX (the warp field of smpl_nerf
-trains through the rows) and adds every dW and db into global memory with
-float32 atomics, so those sums are not bit-identical from run to run.
-`reference_backward_raw` is its plain version: `torch.autograd.grad` through
-`reference_forward_raw`. `launches` counts launches of B, `launches_bwd` of C.
+TPU kernel `_pallas_backward`): per 128-row tile it recomputes the forward
+and runs the dH chain on wgmma (Wᵀ is the same chunk images through wgmma's
+transpose bit), writing dX and every layer's bf16 input and cotangent to a
+scratch; a split-K wgmma GEMM over the rows then forms dW (rounded to bf16
+per 256-row slice, as the JAX kernel's tiles round) and db, and a last pass
+sums the splits in a fixed order. No atomics: the gradients are the same
+bits on every run. `reference_backward_raw` is its plain version:
+`torch.autograd.grad` through `reference_forward_raw`. `launches` counts
+launches of B, `launches_bwd` of C.
 """
 from __future__ import annotations
 
@@ -43,9 +47,10 @@ import numpy as np
 import torch
 
 from smpl_nerf_tpu_torch.ops import _build
-from smpl_nerf_tpu_torch.ops.fused_mlp import (TILE_ROWS, MlpSpec, flatten_params,
-                                               packed, skip_mask,
-                                               topology_reason, trunk_forward, unpack_grads)
+from smpl_nerf_tpu_torch.ops.fused_mlp import (D_CHUNK, D_TILE_ROWS, MlpSpec, flatten_params,
+                                               grad_count_d, packed, pack_weights_d,
+                                               padded_width, skip_mask, topology_reason,
+                                               trunk_forward, unpack_grads_d)
 
 launches = 0          # kernel B (forward)
 launches_bwd = 0      # kernel C (backward)
@@ -120,6 +125,19 @@ def reference_backward_raw(spec: MlpSpec, flat, x_raw: torch.Tensor, g: torch.Te
     return tuple(dflat), dx
 
 
+def shared_bytes(spec: MlpSpec, backward: bool = False) -> int:
+    """Dynamic shared memory of one block of kernel B, or of C's first phase
+    (render_net.cuh's Cfg): a ring of 3 (padded width 256) or 4 (128) stages
+    of a weight chunk and a 128 x 64 bf16 A chunk, the mbarriers and 1024 B of
+    alignment slack; C adds a 64 x W bf16 staging tile per consumer
+    warpgroup. The depth and the encodings do not enter: every block of K
+    streams."""
+    WP = padded_width(spec)
+    stages = 3 if WP == 256 else 4
+    staging = 2 * 64 * WP * 2 if backward else 0
+    return stages * (D_CHUNK * WP * 2 + D_TILE_ROWS * D_CHUNK * 2) + staging + 2 * stages * 8 + 1024
+
+
 def kernel_supports(spec: MlpSpec) -> str:
     """'' if the CUDA kernels B and C take this net, else the reason they do not."""
     reason = topology_reason(spec)
@@ -139,18 +157,21 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_mlp_v2_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_uint, i, p]
     lib.fused_mlp_v2_fwd_launch.restype = ctypes.c_int
+    lib.fused_mlp_v2_fwd_shared_bytes.argtypes = [i]
+    lib.fused_mlp_v2_fwd_shared_bytes.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("fused_mlp_v2_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp_v2_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                            ctypes.c_uint, i, i, p]
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.fused_mlp_v2_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, u, i, p]
     lib.fused_mlp_v2_bwd_launch.restype = ctypes.c_int
-    lib.fused_mlp_v2_bwd_scratch_elems.argtypes = [i, i]
-    lib.fused_mlp_v2_bwd_scratch_elems.restype = ctypes.c_int
+    lib.fused_mlp_v2_bwd_sizes.argtypes = [i, i, i, i, i, u, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_mlp_v2_bwd_sizes.restype = ctypes.c_int
+    lib.fused_mlp_v2_bwd_shared_bytes.argtypes = [i]
+    lib.fused_mlp_v2_bwd_shared_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -166,25 +187,42 @@ def _check_rows(spec: MlpSpec, x_raw: torch.Tensor) -> None:
                          f"got {tuple(x_raw.shape)}")
 
 
+def _net_args(spec: MlpSpec):
+    pos_f, dir_f = _spec_freqs(spec)
+    return (spec.n_layers, spec.width, pos_f, dir_f, skip_mask(spec),
+            int(spec.use_directional_input))
+
+
 def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor) -> torch.Tensor:
     """Launch kernel B on raw rows [N, 6] (float32, CUDA) -> [N, 4] float32."""
     global launches
     _check_rows(spec, x_raw)
-    w, b, table = packed(spec, net, x_raw.device)
+    w, b, heads = packed(spec, net, x_raw.device, pack_weights_d)
     N = x_raw.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=x_raw.device)
     if N == 0:
         return out
-    pos_f, dir_f = _spec_freqs(spec)
     lib = _lib()
     stream = torch.cuda.current_stream(x_raw.device).cuda_stream
-    err = lib.fused_mlp_v2_fwd_launch(
-        x_raw.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), table.data_ptr(),
-        N, spec.n_layers, spec.width, pos_f, dir_f, skip_mask(spec),
-        int(spec.use_directional_input), stream)
+    err = lib.fused_mlp_v2_fwd_launch(x_raw.data_ptr(), out.data_ptr(), w.data_ptr(),
+                                      b.data_ptr(), heads.data_ptr(), N, *_net_args(spec),
+                                      stream)
     _build.check(lib, err, "fused_mlp_v2_fwd")
     launches += 1
     return out
+
+
+def workspace_bytes(spec: MlpSpec, N: int) -> int:
+    """Device memory kernel C borrows for N rows (the wrapper's torch.empty):
+    the bf16 scratch [N, ld] of every layer's input and cotangent, the
+    per-block ReLU bits and d-encoding buffers, the per-split partial sums."""
+    sizes = (ctypes.c_longlong * 2)()
+    lib = _lib_bwd()
+    _build.check(lib, lib.fused_mlp_v2_bwd_sizes(N, *_net_args(spec), sizes), "fused_mlp_v2_bwd")
+    if sizes[1] != grad_count_d(spec):
+        raise RuntimeError(f"kernel C counts {sizes[1]} gradients, grad_count_d "
+                           f"{grad_count_d(spec)}")
+    return int(sizes[0])
 
 
 def fused_backward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor,
@@ -192,7 +230,7 @@ def fused_backward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor
     """Launch kernel C: (dflat, dx) for raw rows [N, 6] and cotangent g [N, 4].
 
     dflat are float32 (d kernel [in, out], d bias) pairs in `_param_order`
-    (views of two buffers the kernel adds into), dx is [N, 6] float32.
+    (views of one gradient buffer), dx is [N, 6] float32.
     """
     global launches_bwd
     _check_rows(spec, x_raw)
@@ -202,28 +240,21 @@ def fused_backward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor
         raise ValueError(f"fused v2 backward takes a contiguous float32 [N, 4] cotangent on "
                          f"{x_raw.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
     device = x_raw.device
-    w, b, table = packed(spec, net, device)
-    dw = torch.zeros(w.numel(), dtype=torch.float32, device=device)
-    db = torch.zeros(b.numel(), dtype=torch.float32, device=device)
+    w, b, heads = packed(spec, net, device, pack_weights_d)
     dx = torch.empty((N, 6), dtype=torch.float32, device=device)
-    if N:
-        pos_f, dir_f = _spec_freqs(spec)
-        lib = _lib_bwd()
-        # a persistent grid: one block per SM, each looping over 64-row tiles
-        # with its own slice of the activation scratch
-        n_tiles = -(-N // TILE_ROWS)
-        grid = min(n_tiles, torch.cuda.get_device_properties(device).multi_processor_count)
-        acts = torch.empty(grid * lib.fused_mlp_v2_bwd_scratch_elems(spec.n_layers, spec.width),
-                           dtype=torch.bfloat16, device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fused_mlp_v2_bwd_launch(
-            x_raw.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            acts.data_ptr(), w.data_ptr(), b.data_ptr(), table.data_ptr(),
-            N, spec.n_layers, spec.width, pos_f, dir_f, skip_mask(spec),
-            int(spec.use_directional_input), grid, stream)
-        _build.check(lib, err, "fused_mlp_v2_bwd")
-        launches_bwd += 1
-    return unpack_grads(spec, dw, db), dx
+    if N == 0:
+        grads = torch.zeros(grad_count_d(spec), dtype=torch.float32, device=device)
+        return unpack_grads_d(spec, grads), dx
+    grads = torch.empty(grad_count_d(spec), dtype=torch.float32, device=device)
+    workspace = torch.empty(workspace_bytes(spec, N), dtype=torch.uint8, device=device)
+    lib = _lib_bwd()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.fused_mlp_v2_bwd_launch(
+        x_raw.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), workspace.data_ptr(),
+        w.data_ptr(), b.data_ptr(), heads.data_ptr(), N, *_net_args(spec), stream)
+    _build.check(lib, err, "fused_mlp_v2_bwd")
+    launches_bwd += 1
+    return unpack_grads_d(spec, grads), dx
 
 
 class FusedMlpV2(torch.autograd.Function):

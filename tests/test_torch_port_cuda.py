@@ -14,8 +14,9 @@ order, which can flip one bf16 rounding (2^-8 relative) downstream. Kernel C
 has the same roundings; besides, a ReLU mask flips where the two forwards put
 an activation on either side of 0, which moves one row's dX by a whole term
 (bounded by max and by mean), while every dW and db is a sum over all rows
-and is held by relative norm. Its float32 atomics make dW and db differ in
-the last bits from run to run. Kernel E in float32 differs from its plain
+and is held by relative norm (C rounds dW to bf16 per 256-row slice, as the
+JAX kernel's tiles do, where the plain version rounds once); C has no
+atomics, so two runs agree bit for bit. Kernel E in float32 differs from its plain
 version only in summation order (2e-5, the JAX package's bound for its
 kernel); in bf16 one rounding can flip and the second layer carries it
 (5e-2 absolute on outputs of order 1). Kernel F multiplies bf16 values
@@ -335,16 +336,73 @@ def test_fused_v2_autograd_function_end_to_end(gen, cuda):
     assert (fused_mlp_v2.launches - b0, fused_mlp_v2.launches_bwd - c0) == (2, 1)
 
 
-def test_fused_v2_backward_atomics_are_close_from_run_to_run(gen, cuda):
+def test_fused_v2_backward_is_bit_identical_from_run_to_run(gen, cuda):
+    """No atomics: every sum of kernel C has one fixed order."""
     net = _net(cuda, 3, 64, 4, 2, (1,), True, seed=4)
     spec = fused_mlp.spec_from_model(net)
     x = _rows(gen, 30000, cuda)
     g = torch.from_numpy(gen.randn(30000, 4).astype(np.float32)).to(cuda)
     a_flat, a_dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
     b_flat, b_dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
-    assert torch.equal(a_dx, b_dx)                          # dX has no atomics
+    assert torch.equal(a_dx, b_dx)
     for a, b in zip(a_flat, b_flat):
-        assert float((a - b).norm()) <= 1e-5 * float(b.norm()) + 1e-12
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_layers,width,pos_f,dir_f,skips,use_dir,rows", [
+    (8, 256, 10, 4, (4,), True, 1),            # ragged rows: one row, either side of a tile
+    (8, 256, 10, 4, (4,), True, 127),
+    (3, 256, 10, 4, (1,), True, 129),
+    (8, 256, 10, 4, (4,), True, 131072 + 17),  # 1025 tiles: the persistent grid's tail
+    (2, 32, 10, 4, (0,), True, 5000),          # the narrowest width at the flagship encodings
+    (4, 96, 4, 2, (2,), True, 5000),           # padded to 128
+    (2, 160, 10, 12, (0,), False, 20000),      # padded to 256, no directional input
+    (2, 64, 12, 4, (0,), True, 700),           # a positional block of two 64-column chunks
+])
+def test_fused_v2_kernels_on_ragged_and_persistent_shapes(gen, cuda, n_layers, width, pos_f,
+                                                          dir_f, skips, use_dir, rows):
+    """Kernels B and C against their plain versions where the grid, the tiles
+    and the padded widths have edges."""
+    net = _net(cuda, n_layers, width, pos_f, dir_f, skips, use_dir, seed=width + rows)
+    spec = fused_mlp.spec_from_model(net)
+    flat = fused_mlp.flatten_params(spec, net)
+    x = _rows(gen, rows, cuda)
+    g = torch.from_numpy(gen.randn(rows, 4).astype(np.float32)).to(cuda) / rows
+    b0, c0 = fused_mlp_v2.launches, fused_mlp_v2.launches_bwd
+    with torch.no_grad():
+        got = fused_mlp_v2.fused_forward_cuda(spec, net, x)
+        want = fused_mlp_v2.reference_forward_raw(spec, flat, x)
+    dflat, dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
+    want_flat, want_dx = fused_mlp_v2.reference_backward_raw(spec, flat, x, g)
+    torch.cuda.synchronize()
+    assert (fused_mlp_v2.launches - b0, fused_mlp_v2.launches_bwd - c0) == (1, 1)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= MLP_REL * float(want.abs().max())
+    _check_backward(dflat, dx, want_flat, want_dx)
+    if not use_dir:
+        assert float(dx[:, 3:].abs().max()) == 0.0
+
+
+def test_fused_v2_kernels_take_no_rows(cuda):
+    net = _net(cuda, 3, 64, 4, 2, (1,), True, seed=5)
+    spec = fused_mlp.spec_from_model(net)
+    x = torch.zeros(0, 6, device=cuda)
+    b0, c0 = fused_mlp_v2.launches, fused_mlp_v2.launches_bwd
+    assert fused_mlp_v2.fused_forward_cuda(spec, net, x).shape == (0, 4)
+    dflat, dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, torch.zeros(0, 4, device=cuda))
+    assert dx.shape == (0, 6)
+    for t, p in zip(dflat, fused_mlp.flatten_params(spec, net)):
+        assert t.shape == p.shape and not t.any()
+    assert (fused_mlp_v2.launches, fused_mlp_v2.launches_bwd) == (b0, c0)
+
+
+@pytest.mark.parametrize("width", [32, 96, 128, 160, 256])
+def test_fused_v2_launches_with_the_shared_memory_the_wrapper_states(cuda, width):
+    spec = fused_mlp.MlpSpec(width=width)
+    assert fused_mlp_v2._lib().fused_mlp_v2_fwd_shared_bytes(width) == \
+        fused_mlp_v2.shared_bytes(spec)
+    assert fused_mlp_v2._lib_bwd().fused_mlp_v2_bwd_shared_bytes(width) == \
+        fused_mlp_v2.shared_bytes(spec, backward=True)
 
 
 def test_weight_pack_follows_an_optimizer_step_on_cuda(gen, cuda):
