@@ -11,10 +11,13 @@ unguarded, so that any failure exits non-zero:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build every kernel from smpl_nerf_tpu_torch/csrc/ (one nvcc per source,
      all started together) and print the build seconds and ptxas usage
-     (registers, spills, wgmma serialisation);
+     (registers, spills, wgmma serialisation), which the kernels line repeats
+     per kernel under "ptxas";
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, with CUDA-event times (median of 20) of both and the
-     least time the card could take for the same work: A (sample_pdf), B
+     least time the card could take for the same work; A and E also with
+     their device time per launch from torch.profiler ("device_ms", beside
+     the event time, which includes the wrapper's host time): A (sample_pdf), B
      (fused v2 forward, at 131,072 and 393,216 rows: the coarse and the fine
      call of a 2048-ray batch), D (fused v1 forward, the configs/config.txt
      net with its 621-wide pose prefix, at 131,072 and 262,144 rows), C (fused
@@ -205,16 +208,22 @@ def phase_card() -> str:
     return line
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel; returns {source name: ptxas lines on registers,
+    spills and wgmma serialisation}."""
     from smpl_nerf_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
+    usage = {}
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Performance Loss" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        usage[name] = [line.strip() for line in log.splitlines()
+                       if any(w in line for w in ("entry function", "registers", "spill",
+                                                  "Performance Loss"))]
+        for line in usage[name]:
+            print(f"  ptxas {name}: {line}")
+    return usage
 
 
 def phase_sample_pdf(device) -> dict:
@@ -241,16 +250,20 @@ def phase_sample_pdf(device) -> dict:
           "sample_pdf kernel disagrees with its plain version")
     ms = time_ms(lambda: sample_pdf_cuda.sample_pdf_cuda(bins, weights, PDF_F))
     plain_ms = time_ms(lambda: sampling.sample_pdf(bins, weights, PDF_F))
+    device_ms = kernel_device_ms("sample_pdf", lambda: sample_pdf_cuda.sample_pdf_cuda(
+        bins, weights, PDF_F))
     bytes_moved = 4 * PDF_R * (PDF_K + (PDF_K - 1) + PDF_F)
     bound_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
-    print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({bytes_moved} B at {PEAK_BYTES_PER_S:.3g} B/s)")
+    print(f"  time: kernel {ms:.4f} ms per call (events), {device_ms:.4f} ms on the device "
+          f"(profiler), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bytes_moved} B at {PEAK_BYTES_PER_S:.3g} B/s), {100 * bound_ms / device_ms:.1f} % "
+          f"of the bound on the device")
     return {"name": "sample_pdf", "route": "cuda",
             "source": "smpl_nerf_tpu_torch/csrc/sample_pdf.cu",
             "replaces": "smpl_nerf_tpu/ops/sample_pdf_pallas.py:83",
             "max_abs_err": max_err, "off_share": off_share, "parity_ok": True,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None}
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def full_width_net(device, seed: int, additional_input_dim: int = 0):
@@ -481,6 +494,8 @@ def expert_tiles_variant(name: str, experts, local, dirs, plan, dtype) -> dict:
         torch.cuda.synchronize()
         ms = time_ms(lambda: expert_tiles.expert_tiles_cuda(*args, **kw))
         plain_ms = time_ms(lambda: expert_tiles.expert_tiles_reference(*args, **kw))
+        device_ms = kernel_device_ms("expert_tiles",
+                                     lambda: expert_tiles.expert_tiles_cuda(*args, **kw))
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     bound = EXPERT_BF16_ABS if dtype is not None else EXPERT_F32_REL * max(1.0, scale)
     # every slot's mask read and output written; position and direction read
@@ -495,14 +510,16 @@ def expert_tiles_variant(name: str, experts, local, dirs, plan, dtype) -> dict:
     print(f"kernel E expert_tiles {name}: E={n_experts} L={L} ({n_valid} valid slots, "
           f"{touched} experts touched) D={EXPERT_D} H={EXPERT_H} O=4 tile {EXPERT_TILE}: "
           f"max|err|={err:.3e} (max|plain| {scale:.3e}, bound {bound:.3e})")
-    print(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound by bytes "
-          f"{bytes_ms:.5f} ms ({bytes_moved} B), by operations {ops_ms:.5f} ms "
-          f"({flops:.4g} FLOP at the {'bf16' if dtype is not None else 'float32'} peak)")
+    print(f"  time: kernel {ms:.4f} ms per call (events), {device_ms:.4f} ms on the device "
+          f"(profiler), plain {plain_ms:.4f} ms, bound by bytes {bytes_ms:.5f} ms "
+          f"({bytes_moved} B), by operations {ops_ms:.5f} ms ({flops:.4g} FLOP at the "
+          f"{'bf16' if dtype is not None else 'float32'} peak), "
+          f"{100 * max(bytes_ms, ops_ms) / device_ms:.1f} % of the bound on the device")
     check(bool(torch.isfinite(got).all()), f"expert_tiles {name} gave non-finite outputs")
     check(float(got[~plan.valid].abs().max()) == 0.0,
           f"expert_tiles {name} wrote non-zeros into invalid slots")
     check(err <= bound, f"expert_tiles {name} disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "slots": L, "valid_slots": n_valid, "experts": n_experts,
@@ -666,10 +683,10 @@ KERNEL_SYMBOLS = (("sample_pdf", ("sample_pdf_kernel",)),
                   ("relu_matmul", ("relu_matmul_kernel",)))
 
 
-def profiled(what: str, fn) -> dict:
-    """Run fn under torch.profiler: device time by kernel name (top 10), the
-    device's busy share of fn's host-clock time, and the device ms per launch
-    of each port kernel that ran."""
+def profiled(what: str, fn, top: int = 10) -> dict:
+    """Run fn under torch.profiler: device time by kernel name (the `top`
+    first), the device's busy share of fn's host-clock time, and the device ms
+    per launch of each port kernel that ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -686,7 +703,7 @@ def profiled(what: str, fn) -> dict:
     busy_us = sum(r[2] for r in rows)
     print(f"profile: {what}, {1e3 * wall_s:.1f} ms host clock, "
           f"device busy {busy_us / 1e3:.1f} ms ({busy_us / 1e4 / wall_s:.1f} %)")
-    for key, count, us in rows[:10]:
+    for key, count, us in rows[:top]:
         print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
     device_ms = {}
     for name, symbols in KERNEL_SYMBOLS:
@@ -696,6 +713,23 @@ def profiled(what: str, fn) -> dict:
             device_ms[name] = us / 1e3 / launches
     print(f"profile: device ms per launch {device_ms}")
     return device_ms
+
+
+def kernel_device_ms(name: str, fn, reps: int = 20, attempts: int = 3) -> float:
+    """Device ms per launch of one port kernel over `reps` calls of fn, from
+    torch.profiler (fn warmed up by the caller's event timing). A profiler
+    session now and then hands back no device events at all (seen on the
+    H100 after a dozen sessions in one process), so a window that saw none
+    is profiled again, `attempts` times in all."""
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    for _ in range(attempts):
+        device_ms = profiled(f"{reps} calls of {name}", calls, top=0)
+        if name in device_ms:
+            return device_ms[name]
+    fail(f"the profiler saw no device time of {name} in {attempts} sessions")
 
 
 def make_dataset(tmp: str, teacher_run: str) -> str:
@@ -1023,7 +1057,7 @@ def main() -> None:
 
     device = resolve_device("cuda")
     card = phase_card()
-    phase_build()
+    ptxas = phase_build()
     kernels = [phase_sample_pdf(device), phase_fused_mlp(device), phase_fused_mlp_v1(device),
                phase_fused_bwd(device), phase_expert_tiles(device), phase_relu_matmul(device)]
     paths, device_ms = {}, {}
@@ -1048,8 +1082,10 @@ def main() -> None:
     kernel_e = next(k for k in kernels if k["name"] == "expert_tiles")
     kernel_e["variants"].update(on_path)
     kernel_e.update({key: on_path["path_bf16"][key]
-                     for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+                     for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by")})
     for k in kernels:
+        k["ptxas"] = ptxas[os.path.splitext(os.path.basename(k["source"]))[0]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} was launched on no main path")

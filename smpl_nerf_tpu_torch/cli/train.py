@@ -7,7 +7,10 @@ loading from `<dataset_dir>/train` and `<dataset_dir>/val`, model
 construction, solver training, run-dir saving (config.txt + model_*.pt).
 Runs on the card unless `--device cpu` asks for the plain PyTorch versions.
 Ported for nerf, smpl_nerf, append_to_nerf and append_smpl_params; the
-estimator, image-wise, SMPL-model and GIF branches are not ported yet.
+estimator, image-wise, SMPL-model and GIF branches are not ported yet. A flag
+whose machinery is not ported (`UNPORTED_FLAGS`) raises when it is set to
+anything but its default, before any data is loaded; `--render_gif`, on by
+default, only prints that the GIF step is skipped.
 """
 from __future__ import annotations
 
@@ -28,6 +31,25 @@ from smpl_nerf_tpu_torch.training.factory import build_models_and_params
 from smpl_nerf_tpu_torch.training.solver import Solver
 
 
+# flags the port accepts for config compatibility but does not act on yet:
+# what the JAX package does with each, and what lifts the guard
+UNPORTED_FLAGS = {
+    "check_nans": "the non-finite loss check and its parameter report",
+    "images_per_batch": "drawing each batch from a few images",
+    "tensor_parallel": "width-sharded nets",
+    "mesh_shape": "a device mesh",
+    "multihost": "multi-host runs",
+    "profile_dir": "a trace of the training steps",
+}
+GIF_SKIPPED = "--render_gif: the post-training GIF step is not ported yet; skipped"
+
+
+def _refuse_unported_flags(args, parser) -> None:
+    for flag, what in UNPORTED_FLAGS.items():
+        if getattr(args, flag) != parser.get_default(flag):
+            raise _not_ported(f"--{flag} ({what})")
+
+
 def _default_log_dir(args) -> str:
     stamp = time.strftime("%b%d_%H-%M-%S")
     return os.path.join("runs", f"{stamp}_{args.experiment_name}")
@@ -43,6 +65,7 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
         raise _not_ported(f"training of model_type {args.model_type!r}")
     if int(getattr(args, "use_gmm_loss", 0)):
         raise _not_ported("--use_gmm_loss (the GMM density prior)")
+    _refuse_unported_flags(args, parser)
     dev = resolve_device(device)
     seed = int(getattr(args, "seed", 0))
     np.random.seed(seed)
@@ -64,8 +87,10 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
     if args.load_run:
         solver.restore_train_state(args.load_run)
     solver.train(train_data, val_data)
-    checkpoints.save_run(log_dir, solver.eval_params, args, parser)
+    checkpoints.save_run(log_dir, solver.eval_params, args, parser, args.dataset_dir)
     print("Run saved under", log_dir)
+    if int(args.render_gif):
+        print(GIF_SKIPPED)
     return solver
 
 

@@ -249,10 +249,11 @@ def config_parser() -> ConfigArgumentParser:
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         help="float32|bfloat16 compute precision for MLP matmuls")
     parser.add_argument("--tensor_parallel", type=int, default=0,
-                        help="1: width-shard the NeRF MLPs over the mesh "
-                             "'model' axis (use with e.g. --mesh_shape=4,2)")
+                        help="not ported yet: training raises when it is set (width-sharded "
+                             "nets come with the parallel layer)")
     parser.add_argument("--mesh_shape", type=str, default="",
-                        help="device mesh, e.g. '8' (data) or '4,2' (data,model); '' = all devices on data axis")
+                        help="not ported yet: training raises when it is set (the port runs "
+                             "on one device)")
     parser.add_argument("--use_pallas", type=int, default=1,
                         help="1: fine sampling through the sample_pdf CUDA kernel on the GPU")
     parser.add_argument("--use_fused_mlp", type=int, default=0,
@@ -282,17 +283,19 @@ def config_parser() -> ConfigArgumentParser:
     parser.add_argument("--grid_bound", type=float, default=1.6,
                         help="grid covers [-bound, bound]^3 around the origin")
     parser.add_argument("--check_nans", type=int, default=0,
-                        help="1: enable jax_debug_nans (jit re-runs op-by-op at "
-                             "the first NaN and points at the producing op) and "
-                             "per-epoch finite checks with a param NaN report — "
-                             "the reference's print_number_nans analog")
+                        help="not ported yet: training raises when it is set (the "
+                             "per-epoch finite check with a report of the "
+                             "non-finite parameters)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a jax.profiler trace of a few training steps here")
+                        help="not ported yet: training raises when it is set (a "
+                             "torch.profiler trace of the training steps)")
     parser.add_argument("--multihost", type=int, default=0,
-                        help="call jax.distributed.initialize() (TPU pod slices)")
+                        help="not ported yet: training raises when it is set (the port "
+                             "runs on one host)")
     parser.add_argument("--render_gif", type=int, default=1,
-                        help="re-render train+val into <run>/walking.gif after training "
-                             "(reference inference_gif behaviour for append models)")
+                        help="the post-training GIF step (train+val re-rendered into "
+                             "<run>/walking.gif) is not ported yet: training "
+                             "prints that it is skipped")
     parser.add_argument("--steps_per_epoch", type=int, default=0,
                         help="0 = full epoch (dataset_size/batchsize steps)")
     parser.add_argument("--val_rays", type=int, default=0,
@@ -300,9 +303,8 @@ def config_parser() -> ConfigArgumentParser:
                              "deterministic stride over the val set) instead of all "
                              "of them; final scores always use the full set")
     parser.add_argument("--images_per_batch", type=int, default=0,
-                        help=">0 (dynamic/append_vertices families): draw each ray "
-                             "batch from this many images so in-step SMPL LBS runs "
-                             "on a fixed small pose set instead of every dataset "
-                             "image (keeps step cost flat in dataset size)")
+                        help="not ported yet: training raises when it is >0 (drawing "
+                             "each ray batch from this many images); every batch "
+                             "draws from all images")
     parser.add_argument("--seed", type=int, default=0)
     return parser

@@ -24,6 +24,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
@@ -107,6 +109,16 @@ def load(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on `device`, for a launch.
+
+    `torch.cuda.current_stream(device).cuda_stream` builds a Stream object
+    per call, which takes as much host time as the small kernels' device
+    time; the binding that PyTorch's own generated code calls returns the
+    handle directly."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -15,9 +15,11 @@ encoding, w0, the hidden activations and w1 are rounded to bf16, every
 product accumulates in float32, both biases are added in float32.
 (`ep.tiles_apply` in bf16 also rounds the products and the bias adds.)
 
-What bounds it on the H100: bytes on paper (25 B in, 16 B out per slot, ~6 KB
-of weights per tile), float32 FMA throughput in this first version; the source
-says what the design does about it.
+What bounds it on the H100: bytes (25 B in, 16 B out per slot, ~6 KB of
+weights per tile), with the 36 sines of a row close behind. In bf16 the
+kernel stages each tile's expert once, in the order of `mma.sync`'s B
+fragments, encodes straight into its A fragments and runs both layers on
+tensor cores; in float32 it keeps exact float32 FMAs. The source says how.
 
 `expert_tiles_forward` takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors; it never falls back from CUDA to the plain
@@ -38,6 +40,9 @@ from smpl_nerf_tpu_torch.ops import _build
 from smpl_nerf_tpu_torch.ops.fused_mlp import MAX_SHARED_BYTES
 
 MAX_OUT = 4      # kOutPad in csrc/expert_tiles.cu
+# the bf16 kernel keeps a row's encoding in registers as D/16 k16 steps, at
+# most 8 (the launcher's switch in csrc/expert_tiles.cu): l_pos + l_dir <= 20
+MAX_BF16_INPUTS = 128
 launches = 0
 
 
@@ -86,9 +91,14 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.expert_tiles_launch.argtypes = [p] * 9 + [i] * 9 + [p]
     lib.expert_tiles_launch.restype = ctypes.c_int
-    lib.expert_tiles_shared_bytes.argtypes = [i, i]
+    lib.expert_tiles_shared_bytes.argtypes = [i, i, i]
     lib.expert_tiles_shared_bytes.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _shared_bytes(D: int, H: int, use_bf16: int) -> int:
+    return _lib().expert_tiles_shared_bytes(D, H, use_bf16)
 
 
 def expert_tiles_cuda(experts, local: torch.Tensor, dirs: torch.Tensor, valid: torch.Tensor,
@@ -112,6 +122,10 @@ def expert_tiles_cuda(experts, local: torch.Tensor, dirs: torch.Tensor, valid: t
                          f"l_dir={l_dir} has {encoded_dim(l_pos, l_dir)}")
     if not 1 <= O <= MAX_OUT:
         raise ValueError(f"the kernel writes 1 to {MAX_OUT} outputs per slot, got {O}")
+    use_bf16 = int(compute_dtype == torch.bfloat16)
+    if use_bf16 and D > MAX_BF16_INPUTS:
+        raise ValueError(f"the bf16 kernel keeps a row's encoding in registers and takes at "
+                         f"most {MAX_BF16_INPUTS} inputs (l_pos + l_dir <= 20), got {D}")
     shapes = {"local": (local, (L, 3), torch.float32), "dirs": (dirs, (L, 3), torch.float32),
               "valid": (valid, (L,), torch.bool),
               "tile_expert": (tile_expert, (L // tile,), torch.int32),
@@ -131,16 +145,15 @@ def expert_tiles_cuda(experts, local: torch.Tensor, dirs: torch.Tensor, valid: t
     if L == 0:
         return out
     lib = _lib()
-    need = lib.expert_tiles_shared_bytes(D, H)
+    need = _shared_bytes(D, H, use_bf16)
     if need > MAX_SHARED_BYTES:
         raise ValueError(f"experts with D={D}, H={H} need {need} bytes of shared memory per "
                          f"block, over the {MAX_SHARED_BYTES} a block can have")
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = _build.current_stream(device)
     err = lib.expert_tiles_launch(
         local.data_ptr(), dirs.data_ptr(), valid.data_ptr(), tile_expert.data_ptr(),
         w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-        L, int(tile), E, D, H, O, int(l_pos), int(l_dir),
-        int(compute_dtype == torch.bfloat16), stream)
+        L, int(tile), E, D, H, O, int(l_pos), int(l_dir), use_bf16, stream)
     _build.check(lib, err, "expert_tiles")
     launches += 1
     return out

@@ -461,7 +461,7 @@ def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x: torch.Tensor) -> 
     if N == 0:
         return out
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.current_stream(x.device)
     err = lib.fused_mlp_fwd_launch(
         x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), heads.data_ptr(),
         N, spec.n_layers, spec.width, spec.pos_block, spec.directions_dim, spec.in_dim,

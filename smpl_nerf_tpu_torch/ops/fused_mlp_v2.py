@@ -203,7 +203,7 @@ def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor)
     if N == 0:
         return out
     lib = _lib()
-    stream = torch.cuda.current_stream(x_raw.device).cuda_stream
+    stream = _build.current_stream(x_raw.device)
     err = lib.fused_mlp_v2_fwd_launch(x_raw.data_ptr(), out.data_ptr(), w.data_ptr(),
                                       b.data_ptr(), heads.data_ptr(), N, *_net_args(spec),
                                       stream)
@@ -248,7 +248,7 @@ def fused_backward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor
     grads = torch.empty(grad_count_d(spec), dtype=torch.float32, device=device)
     workspace = torch.empty(workspace_bytes(spec, N), dtype=torch.uint8, device=device)
     lib = _lib_bwd()
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = _build.current_stream(device)
     err = lib.fused_mlp_v2_bwd_launch(
         x_raw.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), workspace.data_ptr(),
         w.data_ptr(), b.data_ptr(), heads.data_ptr(), N, *_net_args(spec), stream)

@@ -81,7 +81,7 @@ def relu_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return y
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.current_stream(x.device)
     err = lib.relu_matmul_launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, K, N, stream)
     _build.check(lib, err, "relu_matmul")
     launches += 1

@@ -1,7 +1,9 @@
 """Run directories (counterpart of smpl_nerf_tpu/training/checkpoints.py).
 
-A run directory holds the fully resolved `config.txt` and one reference-layout
-torch state_dict per model: `model_coarse.pt`, `model_fine.pt`,
+A run directory holds the fully resolved `config.txt`, the dataset's
+`create_dataset_config.txt` where the dataset directory has one (the frame
+order that serving reads back), and one reference-layout torch state_dict per
+model: `model_coarse.pt`, `model_fine.pt`,
 `model_warp_field.pt` — exactly what the JAX package's
 `checkpoints.export_torch_run` writes next to its msgpack weights. A training
 run also keeps `train_state.pt`, the port's own resume state (optimizer
@@ -15,6 +17,7 @@ names `positional_net_{i}` / `directional_net_0` become the reference's
 from __future__ import annotations
 
 import os
+import shutil
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -47,14 +50,22 @@ def params_from_jax(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
 
 
 def save_run(run_dir: str, state_dicts: Mapping[str, Mapping[str, torch.Tensor]],
-             args=None, parser=None) -> None:
-    """Write model_<name>.pt (CPU tensors) and, given args and parser, config.txt."""
+             args=None, parser=None, dataset_dir: Optional[str] = None) -> None:
+    """Write model_<name>.pt (CPU tensors), given args and parser config.txt,
+    and copy create_dataset_config.txt from the dataset directory
+    (`dataset_dir`, else `args.dataset_dir`) when it has one, as the JAX
+    package's save_run does."""
     os.makedirs(run_dir, exist_ok=True)
     for name, sd in state_dicts.items():
         torch.save({k: v.detach().cpu() for k, v in sd.items()},
                    os.path.join(run_dir, f"{name}.pt"))
     if parser is not None and args is not None:
         parser.write_config_file(args, [os.path.join(run_dir, "config.txt")])
+    ds_dir = dataset_dir or getattr(args, "dataset_dir", None)
+    if ds_dir:
+        src = os.path.join(ds_dir, "create_dataset_config.txt")
+        if os.path.exists(src):
+            shutil.copy(src, os.path.join(run_dir, "create_dataset_config.txt"))
 
 
 def load_config(run_dir: str):

@@ -81,6 +81,24 @@ def test_sample_pdf_kernel_matches_plain(gen, cuda, R, K, F, empty):
         assert err.max() <= PDF_ATOL
 
 
+@pytest.mark.parametrize("K", [2, 3, 63, 64, 65, 1024])
+@pytest.mark.parametrize("F", [1, 2, 31, 128, 257])
+def test_sample_pdf_kernel_matches_plain_at_every_lane_run_and_chunk(gen, cuda, K, F):
+    """The shapes of the kernel's CPU emulation (tests/test_torch_port_ae_hopper.py):
+    one to 32 weights per lane, runs of samples with and without float4 stores."""
+    bins, weights = _pdf_inputs(gen, 64, K, 0.0)
+    b, w = torch.from_numpy(bins).to(cuda), torch.from_numpy(weights).to(cuda)
+    got = sample_pdf_cuda.sample_pdf_fused(b, w, F)
+    want = sampling.sample_pdf(b, w, F)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= PDF_ATOL
+    bins, weights = _pdf_inputs(gen, 64, K, 0.3)
+    b, w = torch.from_numpy(bins).to(cuda), torch.from_numpy(weights).to(cuda)
+    err = (sample_pdf_cuda.sample_pdf_fused(b, w, F) - sampling.sample_pdf(b, w, F)).abs()
+    assert float(err.max()) <= float(np.diff(bins, axis=-1).max())
+
+
 def test_sample_pdf_wrapper_checks_its_inputs(cuda):
     bins = torch.rand(4, 9, device=cuda).sort(-1)[0]
     weights = torch.rand(4, 8, device=cuda)
@@ -542,6 +560,40 @@ def test_expert_tiles_kernel_matches_plain(gen, cuda, tile, budget, hidden, l_po
         assert float((got - tiled).abs().max()) <= 1e-4 * max(1.0, float(tiled.abs().max()))
     else:
         assert err <= 5e-2
+
+
+@pytest.mark.parametrize("l_pos,l_dir,H,O,E,tile,all_invalid", [
+    (4, 2, 32, 4, 27, 32, False),     # D=42
+    (3, 1, 16, 4, 27, 8, False),      # D=30, tile 8: half an m-tile
+    (4, 2, 20, 4, 27, 64, False),     # H padded to 32
+    (3, 1, 16, 3, 27, 32, False),     # O=3: scalar stores
+    (4, 2, 32, 4, 1, 24, False),      # E=1, tile 24: a ragged m-tile
+    (3, 1, 16, 4, 27, 32, True),      # every slot invalid
+])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_expert_tiles_kernel_matches_plain_at_the_emulated_shapes(gen, cuda, l_pos, l_dir, H,
+                                                                  O, E, tile, all_invalid,
+                                                                  dtype):
+    """The shapes of the kernel's CPU emulation (tests/test_torch_port_ae_hopper.py)."""
+    D = expert_tiles.encoded_dim(l_pos, l_dir)
+    experts = ep.ExpertMLP(*(torch.tensor(w.astype(np.float32), device=cuda) for w in (
+        gen.randn(E, D, H) * 0.3, gen.randn(E, H) * 0.1, gen.randn(E, H, O) * 0.3,
+        gen.randn(E, O) * 0.1)))
+    budget = 64 * tile
+    ids = torch.as_tensor(gen.randint(0, E + 1, budget // 4), device=cuda)
+    plan = ep.sorted_tile_plan(ids, E, budget, tile)
+    valid = torch.zeros_like(plan.valid) if all_invalid else plan.valid
+    local = torch.tensor(gen.uniform(0, 1, (budget, 3)).astype(np.float32), device=cuda)
+    d = gen.randn(budget, 3).astype(np.float32)
+    dirs = torch.tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), device=cuda)
+    kw = dict(l_pos=l_pos, l_dir=l_dir, tile=tile, compute_dtype=dtype)
+    args = (experts, local, dirs, valid, plan.tile_expert)
+    got = expert_tiles.expert_tiles_forward(*args, **kw)
+    want = expert_tiles.expert_tiles_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and bool((got[~valid] == 0).all())
+    err = float((got - want).abs().max())
+    assert err <= (2e-5 * max(1.0, float(want.abs().max())) if dtype is None else 5e-2)
 
 
 def test_expert_tiles_kernel_reads_no_expert_outside_the_table(gen, cuda):
