@@ -26,9 +26,13 @@ unguarded, so that any failure exits non-zero:
      (fused expert tiles: seeded sorted-tile plans with padding slots and empty
      trailing tiles at E=8000, L=413,696 and at E_occ=329, L=57,344, D=42,
      H=32, O=4, tile 256, in bf16 and in float32; its headline numbers come
-     from phase 7, on the plan of a chunk that the distill path serves) and F
+     from phase 9, on the plan of a chunk that the distill path serves) and F
      (relu-matmul at n=131,072, W=256/512/1024, beside the library call
-     torch.relu(x @ w));
+     torch.relu(x @ w)); then A, B, C and D at a culled fine pass's shapes (K =
+     711 rays of a 2048-ray batch: K, K*64, K*128 and K*192 rows, none a
+     multiple of a tile), under the same bounds, except that C's dX max is
+     taken against the float64 gradient of the same rounded forward, on three
+     inputs, one of them the card test's case;
   4. the smpl_nerf render: `cli/render_path` on a 2-view 128x128 circle of a
      full-width configs/arm_angles.txt run (seeded weights, --use_fused_mlp=2,
      --use_pallas=1, 2048-ray batches), with the kernels' launch counts set to
@@ -36,18 +40,36 @@ unguarded, so that any failure exits non-zero:
      path (--use_fused_mlp=0 --use_pallas=0), the pixel difference between
      the two, and ms per view of both; one kernel-path render under
      torch.profiler gives the device time by kernel and the device's busy share;
-  5. the append render: the same through a full-width configs/config.txt
-     (append_smpl_params) run with --run_fine=1 --use_fused_mlp=1
-     --use_pallas=1, which goes through A and D;
-  6. training: a seeded arm_angles.txt teacher renders 8 train and 2 val views
+  5. the culled renders of the same configuration: seeded full-width runs
+     whose config sets near/far to enclose the occupancy grid's box from a
+     camera at radius 8 (CULL_RADIUS), where the box covers a third of each
+     view, so that the grid culls, and whose fine net's sigma bias is raised
+     by CULL_FINE_SIGMA_BIAS; `render_path --fast 1` (cap 0.25) and
+     `--fast 2` (the occupancy grid, budget derived from probe counts: below
+     the batch, at an odd K), each with its launch counts per batch and per
+     grid bake, kernel path against plain path ray by ray, `--fast 1
+     --cap_fraction 1` against the full render, the 64^3 grid bake timed
+     apart, ms per view of the full, fast and occupancy renders in turns, and
+     one profiled kernel-path render of each;
+  6. the append render and its culled renders: the same through a full-width
+     configs/config.txt (append_smpl_params) run with --run_fine=1
+     --use_fused_mlp=1 --use_pallas=1, which goes through A and D;
+  7. training: a seeded arm_angles.txt teacher renders 8 train and 2 val views
      at 64x64 (one arm angle per view), written as transforms.json + PNGs;
      `cli.train.train` then runs 2 epochs of 8 steps (batch 2048, 64+128
      samples, 8x256 nets, bf16) from one seed through the kernel path
      (--use_fused_mlp=2 --use_pallas=1: A, B forward, C backward) and through
-     the plain path (0, 0); launch counts, finite and falling losses, the two
-     paths' losses per step, the saved run rendered through `render_path`,
-     ms per step of both paths in turns, and one profiled step;
-  7. distillation: `cli.distill.main` on that dataset's val split (2 views of
+     the plain path (0, 0); launch counts (the post-training GIF step's renders
+     of the 10 views included), finite and falling losses, the two paths'
+     losses per step, inference.gif and the 10 PNGs in the run dir, the saved
+     run rendered through `render_path`, ms per step of both paths in turns
+     (these runs, and the plain one, with --render_gif=0), and one profiled
+     step;
+  8. inference: `cli.inference.inference` (inference_torch.py) on the kernel-path
+     training run and its val split at --inf_fast 0, 1 and 2, each with its
+     launch counts (one grid bake per val view at 2), scores.json (mse, psnr,
+     ssim, rlpips), the PNGs and walking.gif;
+  9. distillation: `cli.distill.main` on that dataset's val split (2 views of
      64x64, one 4096-ray chunk each) with a seeded full-width `nerf` teacher
      (arm_angles.txt widths, --use_fused_mlp=2, so the teacher runs through
      kernel B): grid 20 (8000 experts), hidden 32, 192 samples, chunk 4096,
@@ -68,12 +90,12 @@ unguarded, so that any failure exits non-zero:
      kernel-path view; and kernel E against its plain version, timed, on the
      sorted-tile plan of view 0's chunk through the compact field (bf16, the
      serving type, and float32): the kernels line's numbers for E;
-  8. roofline: `cli.mlp_roofline.main` part `chain` (W=256/512/1024, depth 8,
+ 10. roofline: `cli.mlp_roofline.main` part `chain` (W=256/512/1024, depth 8,
      131,072 rows: launches F; the kernel chain within one bf16 step of the
      largest output of the library chain, and not dead) and part
      `fusedmlp` at W=256 (B, C and D);
-  9. one JSON line of per-kernel results;
- 10. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+ 11. one JSON line of per-kernel results (with each path's launches);
+ 12. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Tolerances, each with its reason:
   * sample_pdf (kernel A): the kernel's warp-shuffle cumsum adds in another
@@ -93,7 +115,13 @@ Tolerances, each with its reason:
     bf16 per 256-row slice (as the JAX kernel's tiles) where the plain version
     rounds once: ||kernel - plain|| <= 3e-2 * ||plain||. The kernel sums with
     no atomics, in a fixed order, so two runs on the same inputs must agree
-    bit for bit (dX, every dW and db).
+    bit for bit (dX, every dW and db). At the culled budget's 136,512 rows
+    dX's max bound is held against the float64 gradient of the same rounded
+    forward instead of the plain version: both round every cotangent to
+    bf16, in their own orders, and through the encoding's 2^9 frequencies
+    one rounding moves a row's dX by a good part of the largest row's; on
+    the card test's inputs the plain version is further than the bound from
+    the float64 gradient on one row, on which the kernel is close to it.
   * fused expert tiles (kernel E): in float32 the kernel and its plain
     version differ only in summation order: max |err| <= 2e-5 * max(1, max
     |plain|). In bf16 both round the encoding, the weights and the hidden
@@ -115,6 +143,26 @@ Tolerances, each with its reason:
     bf16 Dense (product and bias rounded to bf16), the kernel like the TPU
     kernel (float32 bias, bf16 after each activation), and the fine samples
     can flip a bin: max pixel difference <= 0.1, mean <= 1e-2.
+  * culled renders, kernel path vs plain path, ray by ray, each path's
+    choice of rays replayed from its own passes (a culled ray must keep its
+    coarse colour, or hold the background colour, bit for bit):
+    `--fast 1` sends the 25 % of rays of largest coarse opacity through the
+    fine pass, and each path picks from its own opacities; on random weights
+    many rays have opacity 1 to within rounding, so the picks differ at the
+    budget's edge, where a ray's pixel jumps between its coarse and its fine
+    colour. So the pixel bounds above hold on the rays both paths treat
+    alike; a ray picked by one path only must lie within twice the paths'
+    largest opacity difference (itself <= 0.1) of its batch's K-th opacity;
+    and on the kernel path's own picks, which no tie can shift, the plain
+    path's passes must give the kernel path's render under the pixel bounds
+    on every ray. `--fast 2`: the auto budget must lie below the batch; every
+    ray that clears the grid's threshold in either path must be rendered by
+    both, a ray rendered by one path only must be below the threshold in
+    both (the budget's rest, taken below the threshold, ties by index), and the
+    rays both paths treat alike are held to the pixel bounds.
+  * `--fast 1 --cap_fraction 1` vs the full render, both on the kernel path:
+    the same kernels on the same rows, only reordered by the selection, and
+    each row's result depends on that row alone: max |diff| <= 1e-4.
   * kernel path vs plain path training losses: the same two roundings, in
     the forward and in the gradients, from the same weights, batches and
     jitter: each of the first 8 steps' losses within 10 % of the other path's.
@@ -124,6 +172,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -149,6 +198,21 @@ VIEWS, RES, BATCH, POSE_ANGLE = 2, 128, 2048, 20.0
 MLP_ERR_MAX, MLP_ERR_MEAN = 2e-2, 2e-3
 PDF_OFF_SHARE = 5e-3
 PIXEL_MAX, PIXEL_MEAN = 0.1, 1e-2
+CAP1_MAX = 1e-4
+FAST_CAP = 0.25      # render_path's --fast 1 budget when --cap_fraction is not given
+# the culled renders' camera radius: the occupancy grid's box (DEFAULT_AABB,
+# half-width 2) then covers a third of each view, and near/far enclose the
+# box's corners (2 * sqrt(3) from its centre)
+CULL_RADIUS = 8.0
+CULL_NEAR_FAR = (CULL_RADIUS - 3.5, CULL_RADIUS + 3.5)
+# added to the culled runs' fine sigma bias, so that every ray is opaque
+# before its last fine sample: that sample's interval is 1e10 long, so where
+# a ray still lets light through there, a density within rounding of 0 sets
+# the ray's colour apart between the two paths (an append ray at radius 8 did
+# without it); the coarse net, which --fast 1 picks by, keeps its seeded
+# weights
+CULL_FINE_SIGMA_BIAS = 4.0
+ODD_K = 711          # an auto-cap budget of a 2048-ray batch: no multiple of a tile
 BWD_DX_MAX, BWD_DX_MEAN, BWD_DW_REL = 0.25, 5e-3, 3e-2
 TRAIN_VIEWS, VAL_VIEWS, TRAIN_RES = 8, 2, 64
 EPOCHS, STEPS_PER_EPOCH = 2, 8
@@ -602,9 +666,11 @@ def zero_launch_counts() -> None:
     expert_tiles.launches = relu_matmul.launches = 0
 
 
-def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=()) -> tuple:
+def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=(),
+               fine_sigma_bias: float = 0.0) -> tuple:
     """Two run dirs with the same seeded full-width weights: the kernel path
-    (--use_fused_mlp, --use_pallas = kernel_flags) and the plain path (0, 0)."""
+    (--use_fused_mlp, --use_pallas = kernel_flags) and the plain path (0, 0);
+    fine_sigma_bias is added to the fine net's sigma bias."""
     from smpl_nerf_tpu_torch import config
     from smpl_nerf_tpu_torch.training import checkpoints, factory
 
@@ -614,6 +680,8 @@ def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=
         args = parser.parse_args([f"--config={config_file}", f"--use_fused_mlp={fused}",
                                   f"--use_pallas={pallas}", f"--batchsize_val={BATCH}", *extra])
         models, _ = factory.build_models_and_params(args, seed=0, device="cpu")
+        with torch.no_grad():
+            models["model_fine"].sigma_out_layer.bias += fine_sigma_bias
         run_dir = os.path.join(tmp, name)
         checkpoints.save_run(run_dir, {k: m.state_dict() for k, m in models.items()},
                              args, parser)
@@ -621,14 +689,16 @@ def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=
     return tuple(runs)
 
 
-def render(run_dir: str, out: str, views: int = VIEWS, res: int = RES):
+def render(run_dir: str, out: str, views: int = VIEWS, res: int = RES, extra=(),
+           radius: float = 2.4):
     from smpl_nerf_tpu_torch.cli import render_path
 
     t0 = time.perf_counter()
     got = render_path.main(["--run_dir", run_dir, "--camera_path", "circle",
                             "--number_steps", str(views), "--resolution", str(res),
                             "--human_pose_angle", str(POSE_ANGLE), "--out", out,
-                            "--batch_size", str(BATCH), "--device", DEVICE])
+                            "--camera_radius", str(radius), "--batch_size", str(BATCH),
+                            "--device", DEVICE, *extra])
     return got, time.perf_counter() - t0
 
 
@@ -669,7 +739,384 @@ def phase_render(tmp: str, what: str, config_file: str, kernel_flags: tuple, ext
     print(f"{what}: ms per {RES}x{RES} view through render_path (host clock, "
           f"plain/kernel/kernel/plain): kernel path {per_view['kernel']:.1f}, "
           f"plain path {per_view['plain']:.1f}")
-    return counts, kernel_run
+    return counts, (kernel_run, plain_run)
+
+
+def culled_rays(run_dir: str) -> tuple:
+    """(pipeline, RayData, per-ray tensors on the card) of run_dir's culled
+    camera path, as render_path builds them."""
+    from smpl_nerf_tpu_torch.cli import render_path
+    from smpl_nerf_tpu_torch.render import batched
+    from smpl_nerf_tpu_torch.training import checkpoints
+
+    device = torch.device(DEVICE)
+    args = checkpoints.load_config(run_dir)
+    pipeline = batched.build_from_run(run_dir, args, device)
+    joints = None if args.model_type in ("nerf", "original_nerf") else args.human_joints
+    data = render_path.camera_path_data("circle", VIEWS, CULL_RADIUS, -90, 90, RES, joints,
+                                        POSE_ANGLE)
+    rays = {"ray_translation": torch.as_tensor(data.origins, device=device),
+            "ray_direction": torch.as_tensor(data.directions, device=device)}
+    if data.human_poses is not None:
+        rays["human_pose"] = torch.as_tensor(data.human_poses[data.image_indices], device=device)
+    return pipeline, data, rays
+
+
+def replay_batches(data, rays):
+    """The batches render_rays_batched cuts: (lo, hi, batch)."""
+    from smpl_nerf_tpu_torch.render import batched
+
+    for _, lo, hi in batched.batch_bounds(data.num_rays, data.num_images, BATCH, False):
+        idx = batched.padded_rows(lo, hi, BATCH, DEVICE)
+        yield lo, hi, {key: v[idx] for key, v in rays.items()}
+
+
+def fast_decisions(run_dir: str, picks=None) -> tuple:
+    """Per ray of a `--fast 1` render of run_dir's culled camera path: its
+    coarse colour, its coarse opacity, whether the renderer sent it through
+    the fine pass (the FAST_CAP share of largest opacities of its batch,
+    picked as `render/fast.py` picks them), from the same batches and the
+    same passes; and, given `picks` (one bool per ray), the render this path
+    gives with those picks instead of its own: coarse colour everywhere, the
+    fine pass on the picked rays."""
+    from smpl_nerf_tpu_torch.render import fast as fast_mod
+
+    pipeline, data, rays = culled_rays(run_dir)
+    passes = pipeline.passes
+    k = int(BATCH * FAST_CAP)
+    rgb, acc, chosen, forced = [], [], [], []
+    with torch.no_grad():
+        for lo, hi, batch in replay_batches(data, rays):
+            origins, dirs = batch["ray_translation"], batch["ray_direction"]
+            pose = passes.pose(batch)
+            out, z_vals, _ = passes.coarse(origins, dirs, pose)
+            picked = torch.zeros(BATCH, dtype=torch.bool, device=DEVICE)
+            picked[fast_mod.top_k(out.acc, k)[1]] = True
+            rgb.append(out.rgb.float()[:hi - lo])
+            acc.append(out.acc.float()[:hi - lo])
+            chosen.append(picked[:hi - lo])
+            if picks is not None:
+                sel = torch.nonzero(torch.as_tensor(picks[lo:hi], device=DEVICE))[:, 0]
+                out_f, _ = passes.fine(origins[sel], dirs[sel], None if pose is None else
+                                       pose[sel], z_vals[sel], out.weights[sel])
+                composed = out.rgb.float()[:hi - lo].clone()
+                composed[sel] = out_f.rgb.float()
+                forced.append(composed)
+    result = [torch.cat(t).cpu().numpy() for t in (rgb, acc, chosen)]
+    return (*result, torch.cat(forced).cpu().numpy() if forced else None)
+
+
+def fast_parity(what: str, runs: tuple, kernel_views: np.ndarray,
+                plain_views: np.ndarray) -> None:
+    """Kernel path against plain path for `--fast 1`, ray by ray. Which rays
+    take the fine pass follows each path's own coarse opacities, and on these
+    random weights many rays have opacity 1 to within rounding (their last
+    sample's interval is 1e10 long), so the two paths' picks differ at the
+    budget's edge. Checks: each path's picks reproduce its render (a ray left
+    out kept its coarse colour, bit for bit); the paths' opacities agree within
+    PIXEL_MAX; rays picked by both paths or by neither agree under the pixel
+    bounds; a ray picked by one path only lies within twice the opacity
+    difference of its batch's K-th opacity in both paths, as a top-K of
+    scores that differ by at most that much must; and the kernel path's
+    render agrees on every ray, under the pixel bounds, with the plain path's
+    passes on the kernel path's own picks, a selection no tie can shift."""
+    k = int(BATCH * FAST_CAP)
+    decided = {}
+    for path, run, views in (("kernel", runs[0], kernel_views),
+                             ("plain", runs[1], plain_views)):
+        coarse, acc, chosen, _ = fast_decisions(run)
+        flat = views.reshape(-1, 3)
+        check(np.array_equal(flat[~chosen], coarse[~chosen]),
+              f"{what} --fast 1 ({path} path): a culled ray lost its coarse colour")
+        decided[path] = (acc, chosen, flat)
+    (acc_k, chosen_k, flat_k), (acc_p, chosen_p, flat_p) = decided["kernel"], decided["plain"]
+    tol = float(abs(acc_k - acc_p).max())
+    same = chosen_k == chosen_p
+    diff = abs(flat_k - flat_p)[same]
+    edge_ok = True
+    for lo in range(0, acc_k.shape[0], BATCH):
+        sl = slice(lo, lo + BATCH)
+        kth_k = np.sort(acc_k[sl])[::-1][k - 1]
+        kth_p = np.sort(acc_p[sl])[::-1][k - 1]
+        odd = ~same[sl]
+        edge_ok &= bool((abs(acc_k[sl][odd] - kth_k) <= 2 * tol).all()
+                        and (abs(acc_p[sl][odd] - kth_p) <= 2 * tol).all())
+    forced = abs(flat_k - fast_decisions(runs[1], picks=chosen_k)[3])
+    print(f"{what} --fast 1: kernel path vs plain path: coarse opacity max|diff|={tol:.4e} "
+          f"(bound {PIXEL_MAX}); {int((~same).sum())} of {same.size} rays picked by one path "
+          f"only, all at the budget's edge: {edge_ok}; on the rays both paths treat alike, "
+          f"pixels max|diff|={diff.max():.4e} (bound {PIXEL_MAX}), mean|diff|="
+          f"{diff.mean():.4e} (bound {PIXEL_MEAN}); over every ray max|diff|="
+          f"{abs(flat_k - flat_p).max():.4e}, mean {abs(flat_k - flat_p).mean():.4e}; "
+          f"against the plain path on the kernel path's picks, every ray: max|diff|="
+          f"{forced.max():.4e}, mean|diff|={forced.mean():.4e}")
+    check(tol <= PIXEL_MAX, f"{what} --fast 1: the paths' coarse opacities disagree")
+    check(edge_ok, f"{what} --fast 1: a ray picked by one path only is not at the budget's edge")
+    check(float(diff.max()) <= PIXEL_MAX and float(diff.mean()) <= PIXEL_MEAN,
+          f"{what} --fast 1: kernel path and plain path renders disagree")
+    check(float(forced.max()) <= PIXEL_MAX and float(forced.mean()) <= PIXEL_MEAN,
+          f"{what} --fast 1: the kernel path disagrees with the plain path on its own picks")
+
+
+def occupancy_decisions(run_dir: str) -> tuple:
+    """(cap, scores, chosen) per ray of a `--fast 2` render of run_dir's
+    culled camera path: the auto budget, each ray's grid score and whether
+    the renderer rendered it, replayed as cli/inference.render_dataset and
+    render/fast.py do (one pose on the path: one grid for every batch)."""
+    from smpl_nerf_tpu_torch.cli import inference
+    from smpl_nerf_tpu_torch.render import fast as fast_mod
+
+    pipeline, data, rays = culled_rays(run_dir)
+    cap, grids = inference._auto_cap_fraction(pipeline, data, data.human_poses, False, BATCH)
+    occ = fast_mod.make_occupancy_renderer(pipeline, cap, warn_saturation=False,
+                                           warn_background=False)
+    grid = grids[0].to(DEVICE)
+    scores, chosen = [], []
+    with torch.no_grad():
+        for lo, hi, batch in replay_batches(data, rays):
+            s = occ.ray_scores(grid, batch["ray_translation"], batch["ray_direction"])
+            picked = torch.zeros(BATCH, dtype=torch.bool, device=DEVICE)
+            picked[fast_mod.top_k(s, max(1, int(BATCH * cap)))[1]] = True
+            scores.append(s[:hi - lo])
+            chosen.append(picked[:hi - lo])
+    return cap, torch.cat(scores).cpu().numpy(), torch.cat(chosen).cpu().numpy()
+
+
+def occupancy_parity(what: str, runs: tuple, kernel_views: np.ndarray,
+                     plain_views: np.ndarray) -> None:
+    """Kernel path against plain path for `--fast 2`, ray by ray. Checks: the
+    auto budget lies below the batch (the render culls); each path's choice
+    reproduces its render (a culled ray holds the background colour, bit for
+    bit); every ray whose score clears the threshold in either path is
+    rendered by both; a ray rendered by one path only is below the threshold
+    in both (the budget's rest, taken below the threshold, ties by index);
+    the rays both paths treat alike agree under the pixel bounds."""
+    from smpl_nerf_tpu_torch.ops import occupancy
+    from smpl_nerf_tpu_torch.training import checkpoints
+
+    bg = 1.0 if int(checkpoints.load_config(runs[0]).white_background) else 0.0
+    decided = {}
+    for path, run, views in (("kernel", runs[0], kernel_views),
+                             ("plain", runs[1], plain_views)):
+        cap, scores, chosen = occupancy_decisions(run)
+        flat = views.reshape(-1, 3)
+        check(cap < 1.0, f"{what} --fast 2 ({path} path): the auto budget {cap} culls nothing")
+        check(bool((flat[~chosen] == bg).all()),
+              f"{what} --fast 2 ({path} path): a culled ray is not the background colour")
+        decided[path] = (cap, scores > occupancy.OCC_THRESHOLD, chosen, flat)
+    (cap_k, fg_k, chosen_k, flat_k), (cap_p, fg_p, chosen_p, flat_p) = (decided["kernel"],
+                                                                        decided["plain"])
+    fg = fg_k | fg_p
+    same = chosen_k == chosen_p
+    diff = abs(flat_k - flat_p)[same]
+    K = max(1, int(BATCH * cap_k))
+    print(f"{what} --fast 2: auto budget kernel path {cap_k:.4f} (K={K} of {BATCH}, "
+          f"{K % 128} rays past a whole 128), plain path {cap_p:.4f}; foreground "
+          f"{int(fg_k.sum())} / {int(fg_p.sum())} of {fg.size} rays, rendered {int(chosen_k.sum())}"
+          f" / {int(chosen_p.sum())}; {int((~same).sum())} rays rendered by one path only; "
+          f"on the rays both paths treat alike pixels max|diff|={diff.max():.4e} (bound "
+          f"{PIXEL_MAX}), mean|diff|={diff.mean():.4e} (bound {PIXEL_MEAN})")
+    check(bool((chosen_k & chosen_p)[fg].all()),
+          f"{what} --fast 2: a foreground ray was culled by a path")
+    check(not bool(fg[~same].any()),
+          f"{what} --fast 2: a ray rendered by one path only clears the threshold")
+    check(float(diff.max()) <= PIXEL_MAX and float(diff.mean()) <= PIXEL_MEAN,
+          f"{what} --fast 2: kernel path and plain path renders disagree")
+
+
+def phase_culled(tmp: str, what: str, config_file: str, kernel_flags: tuple, extra: tuple,
+                 net_kernel: str) -> tuple:
+    """`render_path --fast 1` (cap 0.25) and `--fast 2` (auto cap) of one
+    family's full-width runs, seen from CULL_RADIUS: launch counts set to 0
+    just before and read just after each kernel-path render, held per batch
+    and per grid bake; kernel path against plain path, ray by ray; --fast 1
+    --cap_fraction 1 against the full render; the bake timed apart (CUDA
+    events); ms per view of the full, fast and occupancy renders in turns;
+    one profiled kernel-path render of each. Returns ({path: launch counts},
+    {path: device ms})."""
+    from smpl_nerf_tpu_torch.render import batched
+    from smpl_nerf_tpu_torch.render import fast as fast_mod
+    from smpl_nerf_tpu_torch.training import checkpoints
+
+    near, far = CULL_NEAR_FAR
+    runs = write_runs(tmp, config_file, f"{what}_culled", kernel_flags,
+                      (*extra, f"--near={near}", f"--far={far}"), CULL_FINE_SIGMA_BIAS)
+    kernel_run, plain_run = runs
+    out = os.path.join(tmp, "views.npy")
+    n_batches = -(-VIEWS * RES * RES // BATCH)
+    paths, device_ms = {}, {}
+    for fast, name in ((1, "fast"), (2, "occupancy")):
+        flags = ("--fast", str(fast))
+        zero_launch_counts()
+        views, first_s = render(kernel_run, out, extra=flags, radius=CULL_RADIUS)
+        counts = launch_counts()
+        # one shared body pose on the camera path: one grid, baked by the
+        # budget's probe pass and reused by every batch
+        bakes = 1 if fast == 2 else 0
+        expected = {"sample_pdf": n_batches, net_kernel: 2 * n_batches + bakes}
+        print(f"{what} --fast {fast}: render_path {VIEWS}x{RES}x{RES} from radius "
+              f"{CULL_RADIUS}, {n_batches} batches of {BATCH} rays: launches {counts} in "
+              f"{first_s:.2f} s; per batch A {counts['sample_pdf'] / n_batches:g}, {net_kernel} "
+              f"{(counts[net_kernel] - bakes) / n_batches:g}; grid bake {bakes} x {net_kernel}")
+        for kernel, got in counts.items():
+            want = expected.get(kernel, 0)
+            check(got == want, f"{what} --fast {fast}: {kernel} launched {got} times, "
+                               f"expected {want}")
+        check(views.shape == (VIEWS, RES, RES, 3) and bool(np.isfinite(views).all()),
+              f"{what} --fast {fast}: bad kernel-path render")
+        plain_views, _ = render(plain_run, out, extra=flags, radius=CULL_RADIUS)
+        check(bool(np.isfinite(plain_views).all()), f"{what} --fast {fast}: bad plain render")
+        if fast == 1:
+            fast_parity(what, runs, views, plain_views)
+        else:
+            occupancy_parity(what, runs, views, plain_views)
+        paths[f"{what}_{name}"] = counts
+    full_views, _ = render(kernel_run, out, radius=CULL_RADIUS)
+    capped, _ = render(kernel_run, out, extra=("--fast", "1", "--cap_fraction", "1"),
+                       radius=CULL_RADIUS)
+    cap_err = float(abs(capped - full_views).max())
+    print(f"{what} --fast 1 --cap_fraction 1 vs the full render (kernel path): max|diff|="
+          f"{cap_err:.4e} (bound {CAP1_MAX})")
+    check(cap_err <= CAP1_MAX, f"{what}: --fast 1 --cap_fraction 1 differs from the full render")
+
+    bake_ms = {}
+    for path, run in (("kernel", kernel_run), ("plain", plain_run)):
+        args = checkpoints.load_config(run)
+        pipe = batched.build_from_run(run, args, torch.device(DEVICE))
+        occ = fast_mod.make_occupancy_renderer(pipe, 1.0, warn_background=False)
+        pose = torch.zeros(1, 69, device=DEVICE)
+        pose[0, [int(j) for j in args.human_joints]] = float(np.deg2rad(POSE_ANGLE))
+        bake_ms[path] = time_ms(lambda: occ.build_grid({"human_pose": pose}), reps=5,
+                                warmup=1)
+    print(f"{what}: grid bake (64^3 = 262,144 lattice rows through the coarse net, CUDA "
+          f"events, median of 5): kernel path {bake_ms['kernel']:.3f} ms, plain path "
+          f"{bake_ms['plain']:.3f} ms")
+
+    seconds = {(path, mode): [] for path in ("plain", "kernel") for mode in (0, 1, 2)}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        for mode in (0, 1, 2):
+            _, sec = render(plain_run if path == "plain" else kernel_run, out,
+                            extra=("--fast", str(mode)), radius=CULL_RADIUS)
+            seconds[(path, mode)].append(sec)
+    per_view = {key: 1e3 * statistics.mean(v) / VIEWS for key, v in seconds.items()}
+    for path in ("kernel", "plain"):
+        turns = {mode: " ".join(f"{1e3 * sec / VIEWS:.1f}" for sec in seconds[(path, mode)])
+                 for mode in (0, 1, 2)}
+        print(f"{what}: ms per {RES}x{RES} view through render_path from radius "
+              f"{CULL_RADIUS} (host clock, plain/kernel/kernel/plain), {path} path: full "
+              f"{per_view[(path, 0)]:.1f} ({turns[0]}), fast {per_view[(path, 1)]:.1f} "
+              f"({turns[1]}), occupancy {per_view[(path, 2)]:.1f} ({turns[2]}; budget probe "
+              f"pass and bake included)")
+    for fast, name in ((0, "full_from_cull_radius"), (1, "fast"), (2, "occupancy")):
+        device_ms[f"{what}_{name}"] = profiled(
+            f"kernel-path {what} --fast {fast} render of {VIEWS} views from radius "
+            f"{CULL_RADIUS}",
+            lambda: render(kernel_run, out, extra=("--fast", str(fast)), radius=CULL_RADIUS))
+    return paths, device_ms
+
+
+def phase_odd_k(device) -> dict:
+    """Kernels A, B, C and D at a culled fine pass's shapes: K = ODD_K rays of
+    a 2048-ray batch (an auto-cap budget), so K, K*64, K*128 and K*192 rows,
+    none a multiple of a 128-row tile, against their plain versions."""
+    from smpl_nerf_tpu_torch.core import sampling
+    from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2, sample_pdf_cuda
+
+    K = ODD_K
+    g = torch.Generator(device=device).manual_seed(8)
+    bins = torch.sort(1.0 + 3.0 * torch.rand(K, PDF_K, generator=g, device=device), -1)[0]
+    weights = torch.rand(K, PDF_K - 1, generator=g, device=device)
+    weights = torch.where(torch.rand(weights.shape, generator=g, device=device) < 0.3,
+                          torch.zeros_like(weights), weights)
+    got = sample_pdf_cuda.sample_pdf_cuda(bins, weights, PDF_F)
+    want = sampling.sample_pdf(bins, weights, PDF_F)
+    err = (got - want).abs()
+    widest = float((bins[:, 1:] - bins[:, :-1]).max())
+    off_share = float((err > 1e-4).float().mean())
+    print(f"odd K: kernel A R={K}: max|err|={float(err.max()):.3e} (bound: widest bin "
+          f"{widest:.3e}), share off by >1e-4 {off_share:.3e} (bound {PDF_OFF_SHARE})")
+    check(bool(torch.isfinite(got).all()) and float(err.max()) <= widest
+          and off_share <= PDF_OFF_SHARE, f"sample_pdf kernel disagrees at R={K}")
+    result = {"sample_pdf": {"rays": K, "max_abs_err": float(err.max())}}
+    for name, module, add, row_counts in (("fused_mlp_v2_fwd", fused_mlp_v2, 0, (64, 192)),
+                                          ("fused_mlp_fwd", fused_mlp, 621, (64, 128))):
+        net = full_width_net(device, seed=1 if add == 0 else 3, additional_input_dim=add)
+        spec = fused_mlp.spec_from_model(net)
+        flat = fused_mlp.flatten_params(spec, net)
+        result[name] = {}
+        for per_ray in row_counts:
+            rows = K * per_ray
+            if add == 0:
+                x = raw_rows(device, seed=9, rows=rows)
+                reference = fused_mlp_v2.reference_forward_raw
+            else:
+                x = 2.0 * torch.rand(rows, spec.in_dim, generator=g, device=device) - 1.0
+                reference = fused_mlp.reference_forward
+            with torch.no_grad():
+                got = module.fused_forward_cuda(spec, net, x)
+                want = reference(spec, flat, x)
+            print(f"odd K: kernel {name} N={rows} ({K} rays x {per_ray} samples, "
+                  f"{rows % 128} rows past the last whole 128-row tile):")
+            result[name][str(rows)] = forward_parity(name, got, want)[0]
+    result["fused_mlp_v2_bwd"] = odd_k_backward(device, K * 192)
+    return result
+
+
+def odd_k_backward(device, rows: int) -> dict:
+    """Kernel C at a culled fine pass's rows, held as phase 3 holds it, except
+    that dX's largest error is taken against the float64 gradient of the
+    same rounded forward (`fused_mlp_v2.exact_backward_dx`): the plain
+    version rounds its cotangents to bf16 too, and is itself that far off on
+    some rows. Three inputs: the card test's case (net seed 256 + rows, rows
+    and cotangent from numpy's RandomState(0)) and two of this script's."""
+    from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2
+
+    readings = []
+    for label, net_seed, row_seed in (("card test's case", 256 + rows, None),
+                                      ("seed 11", 11, 12), ("seed 13", 13, 14)):
+        net = full_width_net(device, seed=net_seed)
+        spec = fused_mlp.spec_from_model(net)
+        flat = fused_mlp.flatten_params(spec, net)
+        if row_seed is None:
+            rng = np.random.RandomState(0)
+            p3 = rng.uniform(-2, 2, (rows, 3)).astype(np.float32)
+            d3 = rng.randn(rows, 3).astype(np.float32)
+            d3 /= np.linalg.norm(d3, axis=-1, keepdims=True)
+            x = torch.from_numpy(np.concatenate([p3, d3], -1)).to(device)
+            g = torch.from_numpy(rng.randn(rows, 4).astype(np.float32)).to(device) / rows
+        else:
+            x = raw_rows(device, seed=row_seed, rows=rows)
+            gen = torch.Generator(device=device).manual_seed(row_seed)
+            g = torch.randn(rows, 4, generator=gen, device=device) / rows
+        dflat, dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
+        want_flat, want_dx = fused_mlp_v2.reference_backward_raw(spec, flat, x, g)
+        exact = fused_mlp_v2.exact_backward_dx(spec, flat, x, g)
+        scale_max, scale_mean = float(want_dx.abs().max()), float(want_dx.abs().mean())
+        to_plain = (dx - want_dx).abs()
+        kernel_exact = (dx.double() - exact).abs().amax(-1)
+        plain_exact = (want_dx.double() - exact).abs().amax(-1)
+        worst = int(to_plain.amax(-1).argmax())
+        rels = [float((a - b).norm() / b.norm()) for a, b in zip(dflat, want_flat)]
+        reading = {"input": label, "dx_max_to_plain": float(to_plain.max()) / scale_max,
+                   "dx_max_to_exact": float(kernel_exact.max()) / scale_max,
+                   "plain_dx_max_to_exact": float(plain_exact.max()) / scale_max,
+                   "dx_mean_to_plain": float(to_plain.mean()) / scale_mean,
+                   "dw_rel": max(rels)}
+        print(f"odd K: kernel C N={rows} ({label}): dX max|err| / max|plain dX|: against the "
+              f"plain version {reading['dx_max_to_plain']:.4f}, against the float64 gradient "
+              f"{reading['dx_max_to_exact']:.4f} (bound {BWD_DX_MAX}; the plain version's own "
+              f"{reading['plain_dx_max_to_exact']:.4f}); worst row against the plain version "
+              f"{worst}: kernel {float(kernel_exact[worst]):.3e}, plain "
+              f"{float(plain_exact[worst]):.3e} from the float64 gradient; dX mean|err| rel "
+              f"{reading['dx_mean_to_plain']:.3e} (bound {BWD_DX_MEAN}); dW/db worst rel "
+              f"{reading['dw_rel']:.3e} (bound {BWD_DW_REL})")
+        check(all(bool(torch.isfinite(t).all()) for t in (dx, *dflat))
+              and reading["dx_max_to_exact"] <= BWD_DX_MAX
+              and reading["dx_mean_to_plain"] <= BWD_DX_MEAN and max(rels) <= BWD_DW_REL,
+              f"fused v2 backward kernel disagrees at N={rows} ({label})")
+        readings.append(reading)
+        del dflat, dx, want_flat, want_dx, exact
+    return {"rows": rows, "readings": readings}
 
 
 # per wrapper: the device kernels of one launch (C's launch runs three; the
@@ -735,9 +1182,8 @@ def kernel_device_ms(name: str, fn, reps: int = 20, attempts: int = 3) -> float:
 def make_dataset(tmp: str, teacher_run: str) -> str:
     """Render TRAIN_VIEWS + VAL_VIEWS views of the teacher on a circle, one arm
     angle per view, and write them as a dataset directory (train/ and val/)."""
-    from smpl_nerf_tpu_torch.cli import render_path
+    from smpl_nerf_tpu_torch.cli import inference, render_path
     from smpl_nerf_tpu_torch.data import datasets
-    from smpl_nerf_tpu_torch.render import batched
     from smpl_nerf_tpu_torch.training import checkpoints
 
     args = checkpoints.load_config(teacher_run)
@@ -747,7 +1193,7 @@ def make_dataset(tmp: str, teacher_run: str) -> str:
     angles = np.deg2rad(np.linspace(0.0, 45.0, n, dtype=np.float32))
     for j in args.human_joints:
         data.human_poses[:, int(j)] = angles
-    images = batched.render_dataset(args, teacher_run, data, batch_size=BATCH, device=DEVICE)
+    images = inference.render_dataset(args, teacher_run, data, batch_size=BATCH, device=DEVICE)
     check(bool(np.isfinite(images).all()), "non-finite teacher render")
     dataset_dir = os.path.join(tmp, "dataset")
     val = np.arange(n) % (n // VAL_VIEWS) == 1            # spread over the circle
@@ -760,7 +1206,8 @@ def make_dataset(tmp: str, teacher_run: str) -> str:
     return dataset_dir
 
 
-def train_run(tmp: str, dataset_dir: str, name: str, fused: int, pallas: int):
+def train_run(tmp: str, dataset_dir: str, name: str, fused: int, pallas: int,
+              gif: bool = False):
     from smpl_nerf_tpu_torch.cli import train as train_cli
 
     log_dir = os.path.join(tmp, name)
@@ -768,7 +1215,8 @@ def train_run(tmp: str, dataset_dir: str, name: str, fused: int, pallas: int):
         [f"--config={ARM_ANGLES}", f"--dataset_dir={dataset_dir}", "--sigma_noise_std=0",
          f"--num_epochs={EPOCHS}", f"--steps_per_epoch={STEPS_PER_EPOCH}",
          f"--batchsize_val={BATCH}", "--seed=1", f"--use_fused_mlp={fused}",
-         f"--use_pallas={pallas}"], log_dir=log_dir, device=DEVICE)
+         f"--use_pallas={pallas}", f"--render_gif={int(gif)}"], log_dir=log_dir,
+        device=DEVICE)
     return solver, log_dir
 
 
@@ -778,14 +1226,21 @@ def phase_training(tmp: str, dataset_dir: str) -> tuple:
     steps = EPOCHS * STEPS_PER_EPOCH
     val_batches = EPOCHS * -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
 
+    # the post-training GIF step renders every train and val view
+    gif_batches = (-(-TRAIN_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
+                   + -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH))
+
     zero_launch_counts()
-    solver, kernel_dir = train_run(tmp, dataset_dir, "train_kernel", 2, 1)
+    solver, kernel_dir = train_run(tmp, dataset_dir, "train_kernel", 2, 1, gif=True)
     counts = launch_counts()
     kernel_loss = solver.history["step_loss"]
     print(f"training: cli.train arm_angles.txt full width, kernel path, {steps} steps of "
-          f"{BATCH} rays + {val_batches} validation batches: launches {counts}")
-    # per step 1 x A, 2 x B, 2 x C (coarse and fine net); per validation batch 1 x A, 2 x B
-    expected = {"sample_pdf": steps + val_batches, "fused_mlp_v2_fwd": 2 * (steps + val_batches),
+          f"{BATCH} rays + {val_batches} validation batches + {gif_batches} batches of the "
+          f"post-training GIF: launches {counts}")
+    # per step 1 x A, 2 x B, 2 x C (coarse and fine net); per validation or GIF
+    # batch 1 x A, 2 x B
+    renders = val_batches + gif_batches
+    expected = {"sample_pdf": steps + renders, "fused_mlp_v2_fwd": 2 * (steps + renders),
                 "fused_mlp_v2_bwd": 2 * steps, "fused_mlp_fwd": 0}
     for name, want in expected.items():
         check(counts[name] == want, f"training: {name} launched {counts[name]} times, "
@@ -812,6 +1267,9 @@ def phase_training(tmp: str, dataset_dir: str) -> tuple:
     view, _ = render(kernel_dir, os.path.join(tmp, "trained.npy"), views=1, res=TRAIN_RES)
     check(view.shape == (1, TRAIN_RES, TRAIN_RES, 3) and bool(np.isfinite(view).all()),
           "training: the saved run does not render")
+    check_rerenders(kernel_dir, TRAIN_VIEWS + VAL_VIEWS, TRAIN_RES, "inference.gif")
+    print(f"training: the post-training GIF step wrote inference.gif and "
+          f"{TRAIN_VIEWS + VAL_VIEWS} img_XXX.png into the run dir")
 
     ms = {"plain": [], "kernel": []}
     for path in ("plain", "kernel", "kernel", "plain"):
@@ -829,7 +1287,87 @@ def phase_training(tmp: str, dataset_dir: str) -> tuple:
     solver.train_step(batch, solver.generator)
     device_ms = profiled("one kernel-path training step",
                          lambda: solver.train_step(batch, solver.generator))
-    return counts, device_ms
+    return counts, device_ms, kernel_dir
+
+
+def gif_frames(path: str) -> tuple:
+    """(width, height, frames) of a GIF89a file, read off its block structure."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    check(data[:6] == b"GIF89a" and data[-1:] == b";", f"{path} is not a whole GIF89a file")
+    w, h, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+
+    def past_sub_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    frames = 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:                       # extension: label, sub-blocks
+            pos = past_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:                     # image: descriptor, code size, data
+            local = data[pos + 9]
+            pos += 10 + (3 << ((local & 7) + 1) if local & 0x80 else 0)
+            pos = past_sub_blocks(pos + 1)
+            frames += 1
+        else:
+            fail(f"{path}: unknown GIF block 0x{data[pos]:02x}")
+    return w, h, frames
+
+
+def check_rerenders(directory: str, n: int, res: int, gif_name: str) -> None:
+    """n readable res x res img_XXX.png files and an n-frame GIF in directory."""
+    from smpl_nerf_tpu_torch.data import png
+
+    for i in range(n):
+        image = png.read_png(os.path.join(directory, f"img_{i:03d}.png"))
+        check(image.shape == (res, res, 3), f"{directory}: img_{i:03d}.png is {image.shape}")
+    frames = gif_frames(os.path.join(directory, gif_name))
+    check(frames == (res, res, n), f"{directory}/{gif_name}: {frames}, expected "
+                                   f"({res}, {res}, {n})")
+
+
+def phase_inference(tmp: str, dataset_dir: str, run_dir: str) -> dict:
+    """`inference_torch.py` (cli.inference.inference) on the trained kernel-path
+    run and the val split at --inf_fast 0, 1 and 2; returns the launch counts
+    of the three runs together."""
+    from smpl_nerf_tpu_torch.cli import inference
+
+    val_dir = os.path.join(dataset_dir, "val")
+    n_batches = -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
+    zero_launch_counts()
+    for fast in (0, 1, 2):
+        save_dir = os.path.join(tmp, f"inference_fast{fast}")
+        before = launch_counts()
+        t0 = time.perf_counter()
+        scores = inference.inference([
+            f"--inf_run_dir={run_dir}", f"--inf_ground_truth_dir={val_dir}",
+            f"--inf_save_dir={save_dir}", f"--inf_batchsize={BATCH}", f"--inf_fast={fast}",
+            f"--device={DEVICE}"])
+        seconds = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        # the val views hold two arm angles: with --inf_fast 2 one grid per image
+        bakes = VAL_VIEWS if fast == 2 else 0
+        expected = {"sample_pdf": n_batches, "fused_mlp_v2_fwd": 2 * n_batches + bakes}
+        print(f"inference --inf_fast {fast}: {VAL_VIEWS} val views {TRAIN_RES}x{TRAIN_RES} in "
+              f"{n_batches} batches of {BATCH}: launches {counts} ({bakes} grid bakes), "
+              f"{seconds:.2f} s host clock (model build, scores and files included); "
+              + " ".join(f"{k} {v:.5f}" for k, v in scores.items()))
+        for kernel, got in counts.items():
+            want = expected.get(kernel, 0)
+            check(got == want, f"inference --inf_fast {fast}: {kernel} launched {got} times, "
+                               f"expected {want}")
+        with open(os.path.join(save_dir, "scores.json")) as fh:
+            saved = json.load(fh)
+        for key in ("mse", "psnr", "ssim", "rlpips"):
+            check(key in saved and bool(np.isfinite(saved[key])),
+                  f"inference --inf_fast {fast}: scores.json lacks a finite {key}")
+        check(saved["fast"] == fast and saved["run_dir"] == run_dir,
+              f"inference --inf_fast {fast}: scores.json names another run")
+        check_rerenders(save_dir, VAL_VIEWS, TRAIN_RES, "walking.gif")
+    return launch_counts()
 
 
 def phase_distill(tmp: str, dataset_dir: str) -> tuple:
@@ -1060,22 +1598,35 @@ def main() -> None:
     ptxas = phase_build()
     kernels = [phase_sample_pdf(device), phase_fused_mlp(device), phase_fused_mlp_v1(device),
                phase_fused_bwd(device), phase_expert_tiles(device), phase_relu_matmul(device)]
+    odd_k = phase_odd_k(device)
+    for k in kernels:
+        if k["name"] in odd_k:
+            k["odd_k"] = odd_k[k["name"]]
     paths, device_ms = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        paths["smpl_nerf_render"], kernel_run = phase_render(
+        paths["smpl_nerf_render"], smpl_runs = phase_render(
             tmp, "smpl_nerf", ARM_ANGLES, (2, 1), (),
             {"sample_pdf": 1, "fused_mlp_v2_fwd": 2, "fused_mlp_fwd": 0, "fused_mlp_v2_bwd": 0})
         out = os.path.join(tmp, "views.npy")
         device_ms["smpl_nerf_render"] = profiled(
-            f"kernel-path smpl_nerf render of {VIEWS} views", lambda: render(kernel_run, out))
-        paths["append_render"], append_run = phase_render(
+            f"kernel-path smpl_nerf render of {VIEWS} views", lambda: render(smpl_runs[0], out))
+        culled_paths, culled_ms = phase_culled(tmp, "smpl_nerf", ARM_ANGLES, (2, 1), (),
+                                               "fused_mlp_v2_fwd")
+        paths.update(culled_paths)
+        device_ms.update(culled_ms)
+        paths["append_render"], append_runs = phase_render(
             tmp, "append_smpl_params", APPEND_CONFIG, (1, 1), ("--run_fine=1",),
             {"sample_pdf": 1, "fused_mlp_fwd": 2, "fused_mlp_v2_fwd": 0, "fused_mlp_v2_bwd": 0})
         device_ms["append_render"] = profiled(
             f"kernel-path append_smpl_params render of {VIEWS} views",
-            lambda: render(append_run, out))
-        dataset_dir = make_dataset(tmp, kernel_run)
-        paths["train"], device_ms["train"] = phase_training(tmp, dataset_dir)
+            lambda: render(append_runs[0], out))
+        culled_paths, culled_ms = phase_culled(tmp, "append", APPEND_CONFIG, (1, 1),
+                                               ("--run_fine=1",), "fused_mlp_fwd")
+        paths.update(culled_paths)
+        device_ms.update(culled_ms)
+        dataset_dir = make_dataset(tmp, smpl_runs[0])
+        paths["train"], device_ms["train"], train_dir = phase_training(tmp, dataset_dir)
+        paths["inference"] = phase_inference(tmp, dataset_dir, train_dir)
         paths["distill"], device_ms["distill"], on_path = phase_distill(tmp, dataset_dir)
         paths["roofline"] = phase_roofline()
     # kernel E's headline is the plan the distill path launched, in its serving type

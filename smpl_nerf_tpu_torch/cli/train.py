@@ -6,11 +6,18 @@ Same CLI contract as the JAX package's train.py: model_type dispatch, dataset
 loading from `<dataset_dir>/train` and `<dataset_dir>/val`, model
 construction, solver training, run-dir saving (config.txt + model_*.pt).
 Runs on the card unless `--device cpu` asks for the plain PyTorch versions.
-Ported for nerf, smpl_nerf, append_to_nerf and append_smpl_params; the
-estimator, image-wise, SMPL-model and GIF branches are not ported yet. A flag
-whose machinery is not ported (`UNPORTED_FLAGS`) raises when it is set to
-anything but its default, before any data is loaded; `--render_gif`, on by
-default, only prints that the GIF step is skipped.
+Ported for nerf, original_nerf, smpl_nerf, append_to_nerf and
+append_smpl_params; the estimator, image-wise and SMPL-model branches are not
+ported yet. A flag whose machinery is not ported (`UNPORTED_FLAGS`) raises
+when it is set to anything but its default, before any data is loaded.
+
+With `--render_gif` (on by default), a nerf, smpl_nerf or append run then
+re-renders its train + val images in creation order into
+<run_dir>/img_XXX.png and <run_dir>/inference.gif
+(`cli/inference.inference_gif`). One deliberate departure from the JAX
+package: JAX catches any exception of this step ("best-effort") and prints
+it; here it propagates, after `save_run` has written the run, so that a
+kernel that fails in these renders is not hidden.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 
 from smpl_nerf_tpu_torch import config as config_mod
 from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
+from smpl_nerf_tpu_torch.cli.inference import inference_gif
 from smpl_nerf_tpu_torch.data import datasets
 from smpl_nerf_tpu_torch.pipelines import RenderConfig, _not_ported, build_pipeline
 from smpl_nerf_tpu_torch.training import checkpoints
@@ -41,7 +49,8 @@ UNPORTED_FLAGS = {
     "multihost": "multi-host runs",
     "profile_dir": "a trace of the training steps",
 }
-GIF_SKIPPED = "--render_gif: the post-training GIF step is not ported yet; skipped"
+# the families whose run the post-training GIF step re-renders (JAX cli/train.py:132-141)
+GIF_FAMILIES = ("append_smpl_params", "append_to_nerf", "nerf", "smpl_nerf")
 
 
 def _refuse_unported_flags(args, parser) -> None:
@@ -89,8 +98,10 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
     solver.train(train_data, val_data)
     checkpoints.save_run(log_dir, solver.eval_params, args, parser, args.dataset_dir)
     print("Run saved under", log_dir)
-    if int(args.render_gif):
-        print(GIF_SKIPPED)
+    if int(args.render_gif) and args.model_type in GIF_FAMILIES:
+        # the reference renders the whole train + val distribution after
+        # training (train.py:183,203 -> inference.py:35-110)
+        inference_gif(log_dir, args, train_data, val_data, device=dev)
     return solver
 
 

@@ -293,9 +293,9 @@ def config_parser() -> ConfigArgumentParser:
                         help="not ported yet: training raises when it is set (the port "
                              "runs on one host)")
     parser.add_argument("--render_gif", type=int, default=1,
-                        help="the post-training GIF step (train+val re-rendered into "
-                             "<run>/walking.gif) is not ported yet: training "
-                             "prints that it is skipped")
+                        help="re-render train+val into <run>/img_XXX.png and "
+                             "<run>/inference.gif after training (nerf, smpl_nerf and the "
+                             "append families)")
     parser.add_argument("--steps_per_epoch", type=int, default=0,
                         help="0 = full epoch (dataset_size/batchsize steps)")
     parser.add_argument("--val_rays", type=int, default=0,

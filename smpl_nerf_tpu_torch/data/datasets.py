@@ -9,9 +9,10 @@ index gather (`training.solver.gather_batch`).
 betas, expression]} beside the PNGs it names. Images are read with
 `data/png.py` in the reference's contract: float32 in [0, 1], **BGR** channel
 order, alpha dropped (the reference trains in BGR and flips only for
-display). Ported for nerf, smpl_nerf, append_to_nerf and append_smpl_params;
-the single-sample, vertex-sphere, estimator and original_nerf loaders are not
-ported yet.
+display). Ported for nerf, smpl_nerf, append_to_nerf, append_smpl_params and
+original_nerf, whose split directory follows the Blender NeRF schema instead
+(`transforms.json` {camera_angle_x, frames: [{file_path, transform_matrix}]});
+the single-sample, vertex-sphere and estimator loaders are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import numpy as np
 from smpl_nerf_tpu_torch.core import rays as rays_mod
 from smpl_nerf_tpu_torch.data import png
 
-LOADABLE_MODEL_TYPES = ("nerf", "smpl_nerf", "append_to_nerf", "append_smpl_params")
+LOADABLE_MODEL_TYPES = ("nerf", "smpl_nerf", "append_to_nerf", "append_smpl_params",
+                        "original_nerf")
 
 
 @dataclasses.dataclass
@@ -56,7 +58,7 @@ class RayData:
         through image_indices instead of the ray index. Poses are stored once
         per image, not once per ray.
         """
-        if model_type not in LOADABLE_MODEL_TYPES + ("original_nerf",):
+        if model_type not in LOADABLE_MODEL_TYPES:
             raise NotImplementedError(f"batch arrays of model_type {model_type!r} are not "
                                       "ported yet to smpl_nerf_tpu_torch")
         out = {"ray_translation": self.origins, "ray_direction": self.directions,
@@ -88,6 +90,8 @@ def load_dataset(directory: str, model_type: str) -> RayData:
     if model_type not in LOADABLE_MODEL_TYPES:
         raise NotImplementedError(f"the dataset loader of model_type {model_type!r} is not "
                                   "ported yet to smpl_nerf_tpu_torch")
+    if model_type == "original_nerf":
+        return _load_original_nerf(directory)
     transforms = _read_transforms(directory)
     tmap = transforms["image_transform_map"]
     names = sorted(tmap.keys())
@@ -107,6 +111,23 @@ def load_dataset(directory: str, model_type: str) -> RayData:
         data.betas = np.array(transforms.get("betas"), np.float32)
         data.expression = np.array(transforms.get("expression"), np.float32)
     return data
+
+
+def _load_original_nerf(directory: str) -> RayData:
+    """Blender NeRF schema: frames [{file_path, transform_matrix}], images
+    `<basename of file_path>.png` in `directory`, in the order of `frames`."""
+    transforms = _read_transforms(directory)
+    frames = transforms["frames"]
+    names = [os.path.basename(f["file_path"]) + ("" if f["file_path"].endswith(".png")
+                                                 else ".png") for f in frames]
+    images = _read_images(directory, names)
+    n, h, w = images.shape[:3]
+    focal = rays_mod.focal_from_fov(w, transforms["camera_angle_x"])
+    cams = np.stack([np.array(f["transform_matrix"], np.float32) for f in frames])
+    origins, dirs = rays_mod.get_rays_batch_np(h, w, focal, cams)
+    idx = np.repeat(np.arange(n, dtype=np.int32), h * w)
+    return RayData(origins.reshape(-1, 3), dirs.reshape(-1, 3), idx, h, w, focal, n, cams,
+                   rgb=images.reshape(-1, 3))
 
 
 def rays_from_cameras(camera_transforms: np.ndarray, h: int, w: int,

@@ -111,29 +111,48 @@ def dense_f32(layers, name: str, h: torch.Tensor, dtype: torch.dtype) -> torch.T
     return torch.matmul(h.float(), k.to(dtype).float()) + b.float()
 
 
-def trunk_forward(spec: MlpSpec, flat, pos: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+def round_through(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """h rounded to `dtype` in the forward, with its gradient passed through
+    unrounded in h's own type."""
+    return h + (h.to(dtype).to(h.dtype) - h).detach()
+
+
+def trunk_forward(spec: MlpSpec, flat, pos: torch.Tensor, dirs: torch.Tensor,
+                  exact: bool = False) -> torch.Tensor:
     """The RenderRayNet body on encoded inputs, rounding to spec.dtype after
-    each ReLU, after additional_linear_layer and after directional_input."""
+    each ReLU, after additional_linear_layer and after directional_input.
+
+    exact=True gives the same forward values in float64 (float64 `pos` and
+    `dirs`, the weights rounded to spec.dtype, the same roundings of the
+    activations) with every rounding passed straight through by autograd: a
+    witness of the gradient that no bf16 rounding of a cotangent disturbs."""
     cdt = spec.torch_dtype
     it = iter(flat)
     layers = {name: (next(it), next(it)) for name in _param_order(spec)}
 
     def dense(name, h):
-        return dense_f32(layers, name, h, cdt)
+        if not exact:
+            return dense_f32(layers, name, h, cdt)
+        k, b = layers[name]
+        return h @ k.to(cdt).double() + b.float().double()
 
-    o = torch.relu(dense("positions_pose_input", pos)).to(cdt)
+    def rnd(h):
+        return round_through(h, cdt) if exact else h.to(cdt)
+
+    o = rnd(torch.relu(dense("positions_pose_input", pos)))
     for i in range(spec.n_layers - 1):
         if i in spec.skips:
             o = torch.cat([o, pos], -1)
-        o = torch.relu(dense(f"positional_net_{i}", o)).to(cdt)
-    o = dense("additional_linear_layer", o).to(cdt)
+        o = rnd(torch.relu(dense(f"positional_net_{i}", o)))
+    o = rnd(dense("additional_linear_layer", o))
     sigma = dense("sigma_out_layer", o)
     if spec.use_directional_input:
         o = torch.cat([o, dirs], -1)
-    o = dense("directional_input", o).to(cdt)
-    o = torch.relu(dense("directional_net_0", o)).to(cdt)
+    o = rnd(dense("directional_input", o))
+    o = rnd(torch.relu(dense("directional_net_0", o)))
     rgb = dense("rgb_out_layer", o)
-    return torch.cat([rgb, sigma], -1).float()
+    out = torch.cat([rgb, sigma], -1)
+    return out if exact else out.float()
 
 
 def reference_forward(spec: MlpSpec, flat, x: torch.Tensor) -> torch.Tensor:

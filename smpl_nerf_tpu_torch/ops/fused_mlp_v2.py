@@ -49,8 +49,8 @@ import torch
 from smpl_nerf_tpu_torch.ops import _build
 from smpl_nerf_tpu_torch.ops.fused_mlp import (D_CHUNK, D_TILE_ROWS, MlpSpec, flatten_params,
                                                grad_count_d, packed, pack_weights_d,
-                                               padded_width, skip_mask, topology_reason,
-                                               trunk_forward, unpack_grads_d)
+                                               padded_width, round_through, skip_mask,
+                                               topology_reason, trunk_forward, unpack_grads_d)
 
 launches = 0          # kernel B (forward)
 launches_bwd = 0      # kernel C (backward)
@@ -83,25 +83,35 @@ def raw_in_dim(spec: MlpSpec) -> int:
     return spec.additional_input_dim + 6
 
 
-def _tile_forward(spec: MlpSpec, enc_mats, flat, x_raw: torch.Tensor) -> torch.Tensor:
-    """Forward on raw rows [N, add+6]: encode, then the RenderRayNet body."""
+def _tile_forward(spec: MlpSpec, enc_mats, flat, x_raw: torch.Tensor,
+                  exact: bool = False) -> torch.Tensor:
+    """Forward on raw rows [N, add+6]: encode, then the RenderRayNet body
+    (exact: see `trunk_forward`)."""
     cdt = spec.torch_dtype
     Mp, Pp, Md, Pd = enc_mats
     add = spec.additional_input_dim
     pos_e = torch.sin(x_raw[:, add:add + 3] @ Mp + Pp)
     dir_e = torch.sin(x_raw[:, add + 3:add + 6] @ Md + Pd)
+    if exact:
+        pos, dirs = round_through(pos_e, cdt), round_through(dir_e, cdt)
+        if add:
+            pos = torch.cat([round_through(x_raw[:, :add], cdt), pos], -1)
+        return trunk_forward(spec, flat, pos, dirs, exact=True)
     pos = pos_e.to(cdt)
     if add:
         pos = torch.cat([x_raw[:, :add].to(cdt), pos], -1)
     return trunk_forward(spec, flat, pos, dir_e.to(cdt))
 
 
+def _encoding_mats(spec: MlpSpec, device, dtype=torch.float32):
+    pos_f, dir_f = _spec_freqs(spec)
+    return tuple(torch.as_tensor(m, device=device, dtype=dtype)
+                 for m in (*encoding_matrices(3, pos_f), *encoding_matrices(3, dir_f)))
+
+
 def reference_forward_raw(spec: MlpSpec, flat, x_raw: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the v2 kernel: raw rows [N, add+6] -> [N, 4]."""
-    pos_f, dir_f = _spec_freqs(spec)
-    mats = [torch.as_tensor(m, device=x_raw.device)
-            for m in (*encoding_matrices(3, pos_f), *encoding_matrices(3, dir_f))]
-    return _tile_forward(spec, tuple(mats), flat, x_raw)
+    return _tile_forward(spec, _encoding_mats(spec, x_raw.device), flat, x_raw)
 
 
 def supports(spec: MlpSpec, pos_encoder, dir_encoder) -> bool:
@@ -123,6 +133,20 @@ def reference_backward_raw(spec: MlpSpec, flat, x_raw: torch.Tensor, g: torch.Te
         y = reference_forward_raw(spec, leaves[1:], leaves[0])
         dx, *dflat = torch.autograd.grad(y, leaves, g)
     return tuple(dflat), dx
+
+
+def exact_backward_dx(spec: MlpSpec, flat, x_raw: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dx [N, add+6] of the plain forward's values in float64, every bf16
+    rounding passed straight through (`trunk_forward(exact=True)`): the
+    gradient that kernel C and `reference_backward_raw` both approximate,
+    each rounding the cotangents to bf16 in its own order. Through the
+    encoding's 2^9 frequencies one such rounding can move a row's dx by a
+    good part of the largest row's, in either approximation."""
+    with torch.enable_grad():
+        x = x_raw.detach().double().requires_grad_(True)
+        y = _tile_forward(spec, _encoding_mats(spec, x.device, torch.float64), flat, x,
+                          exact=True)
+        return torch.autograd.grad(y, x, g.double())[0]
 
 
 def shared_bytes(spec: MlpSpec, backward: bool = False) -> int:

@@ -2,7 +2,9 @@
 and the two append families (append_to_nerf, append_smpl_params).
 
 A pipeline is ``pipeline(batch, generator=None, train=False) -> outputs dict``
-over nn.Modules that hold their own weights. Batch layout (tensors on one
+over nn.Modules that hold their own weights; its `passes` (`FamilyPasses`)
+run the family's coarse and fine passes on any rays, which the culled
+renderers of render/fast.py call on the rays they select. Batch layout (tensors on one
 device): ray_translation [R,3], ray_direction [R,3] (+ human_pose [R,69] for
 the pose-conditioned families). The append families hand the (encoded) pose,
 two joints or all 69, to both nets as a per-ray conditioning prefix.
@@ -170,129 +172,119 @@ def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
     return run
 
 
-class Pipeline:
-    """A built pipeline: call as fn(batch, generator=None, train=False) -> outputs."""
+class FamilyPasses:
+    """How one family runs its coarse and fine passes, on any rays: the full
+    pipeline runs them on every ray of a batch, the culled renderers
+    (render/fast.py) on the rays they select. Each pass returns the
+    family's per-sample tensors for the pipeline's outputs besides its
+    integrated outputs.
 
-    def __init__(self, fn: Callable, cfg: RenderConfig, models: Dict[str, torch.nn.Module],
+    nerf: the nets see the samples and the unit ray direction. smpl_nerf: the
+    warp field offsets every sample (conditioned on two joints), the nets see
+    the warped samples and their unit directions from the origin, and the
+    fine pass integrates with the unwarped per-ray direction, as the
+    reference does (smpl_nerf_pipeline.py:95-98). The append families hand
+    the (encoded) pose, two joints or all 69, to both nets as a prefix.
+    """
+
+    def __init__(self, cfg: RenderConfig, models: Dict[str, torch.nn.Module],
                  encoders: Dict[str, PositionalEncoder]):
-        self._fn = fn
         self.cfg = cfg
         self.models = models
         self.encoders = encoders
+        self.run = _make_net_runner(cfg, models, encoders)
+
+    def pose(self, batch) -> Optional[torch.Tensor]:
+        """The per-ray pose the family conditions on: two joints for smpl_nerf
+        and append_to_nerf, all 69 for append_smpl_params, else None."""
+        mt = self.cfg.model_type
+        if mt == "append_smpl_params":
+            return batch["human_pose"]
+        if mt in ("smpl_nerf", "append_to_nerf"):
+            return two_joint_pose(self.cfg, batch)
+        return None
+
+    def prefix(self, pose: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The append families' conditioning prefix of `pose` rows, else None."""
+        if pose is None or self.cfg.model_type == "smpl_nerf":
+            return None
+        return self.encoders["human_pose"].encode(pose) if self.cfg.human_pose_encoding else pose
+
+    def warp(self, samples: torch.Tensor, pose2: torch.Tensor) -> torch.Tensor:
+        """smpl_nerf warp-field offsets of [R, S, 3] samples."""
+        R, S = samples.shape[:2]
+        rows = warp_field_inputs(self.cfg, self.encoders, samples, pose2, R, S)
+        return self.models["model_warp_field"](rows).reshape(R, S, 3)
+
+    def _net_pass(self, key, origins, dirs, pose, samples, z_vals, noise, gen, fine):
+        cfg = self.cfg
+        if cfg.model_type == "smpl_nerf":
+            warp = self.warp(samples, pose)
+            warped = samples + warp
+            sample_dirs = warped - origins[:, None, :]
+            raw = self.run(key, warped, _normalize(sample_dirs))
+            if fine:
+                sample_dirs = dirs[:, None, :].expand(samples.shape)
+            out = raw2outputs(raw, z_vals, sample_dirs, noise, cfg.white_background, gen)
+            return out, {"warp": warp, "ray_samples": samples, "warped_samples": warped}
+        raw = self.run(key, samples, _normalize(dirs)[:, None, :], prefix=self.prefix(pose))
+        out = raw2outputs(raw, z_vals, dirs[:, None, :].expand(samples.shape), noise,
+                          cfg.white_background, gen)
+        extras = {"ray_samples": samples}
+        if cfg.model_type in ("nerf", "original_nerf"):
+            extras["depth"] = out.depth
+        return out, extras
+
+    def coarse(self, origins, dirs, pose, noise: float = 0.0,
+               gen: Optional[torch.Generator] = None):
+        """(outputs, z_vals, per-sample tensors) of the coarse pass."""
+        cfg = self.cfg
+        samples, z_vals = coarse_sampling(origins, dirs, cfg.near, cfg.far,
+                                          cfg.number_coarse_samples, gen)
+        out, extras = self._net_pass("model_coarse", origins, dirs, pose, samples, z_vals,
+                                     noise, gen, fine=False)
+        return out, z_vals, extras
+
+    def fine(self, origins, dirs, pose, z_vals, weights, noise: float = 0.0,
+             gen: Optional[torch.Generator] = None):
+        """(outputs, per-sample tensors) of the fine pass, sampled from the
+        coarse pass's z_vals and weights."""
+        cfg = self.cfg
+        z_fine, samples = fine_sampling(origins, dirs, z_vals, weights,
+                                        cfg.number_fine_samples, cfg.use_pallas)
+        return self._net_pass("model_fine", origins, dirs, pose, samples, z_fine, noise, gen,
+                              fine=True)
+
+
+class Pipeline:
+    """A built pipeline: call as fn(batch, generator=None, train=False) -> outputs.
+    `passes` runs the family's coarse and fine passes on their own."""
+
+    def __init__(self, passes: FamilyPasses):
+        self.passes = passes
+        self.cfg = passes.cfg
+        self.models = passes.models
+        self.encoders = passes.encoders
 
     def __call__(self, batch, generator: Optional[torch.Generator] = None,
                  train: bool = False):
-        return self._fn(batch, generator if train else None, train)
+        gen = generator if train else None
+        noise = self.cfg.sigma_noise_std if train else 0.0
+        origins, dirs = batch["ray_translation"], batch["ray_direction"]
+        pose = self.passes.pose(batch)
+        out, z_vals, extras = self.passes.coarse(origins, dirs, pose, noise, gen)
+        result = {"rgb_coarse": out.rgb, "densities": out.density, **extras}
+        if not self.cfg.run_fine:
+            result["rgb_fine"] = out.rgb
+            return result
+        out_f, extras_f = self.passes.fine(origins, dirs, pose, z_vals, out.weights, noise, gen)
+        result.update(rgb_fine=out_f.rgb, densities=out_f.density, **extras_f)
+        return result
 
 
 def build_pipeline(cfg: RenderConfig, models: Dict[str, torch.nn.Module],
                    encoders: Dict[str, PositionalEncoder]) -> Pipeline:
-    """The pipeline function for cfg.model_type (one of PORTED_MODEL_TYPES)."""
+    """The pipeline for cfg.model_type (one of PORTED_MODEL_TYPES)."""
     if cfg.model_type not in PORTED_MODEL_TYPES:
         raise _not_ported(f"model_type {cfg.model_type!r}")
-    _run = _make_net_runner(cfg, models, encoders)
-
-    def nerf_fn(batch, gen, train):
-        samples, z_vals = coarse_sampling(batch["ray_translation"], batch["ray_direction"],
-                                          cfg.near, cfg.far, cfg.number_coarse_samples, gen)
-        noise = cfg.sigma_noise_std if train else 0.0
-        origins = batch["ray_translation"]
-        dirs = batch["ray_direction"]
-        dirs_exp = dirs[:, None, :].expand(samples.shape)
-        # directions are constant per ray: the [R,1,3] unit dir is encoded once
-        dirs_unit = _normalize(dirs)[:, None, :]
-        raw = _run("model_coarse", samples, dirs_unit)
-        out = raw2outputs(raw, z_vals, dirs_exp, noise, cfg.white_background, gen)
-        result = {"rgb_coarse": out.rgb, "densities": out.density,
-                  "ray_samples": samples, "depth": out.depth}
-        if not cfg.run_fine:
-            result["rgb_fine"] = out.rgb
-            return result
-        z_fine, samples_fine = fine_sampling(origins, dirs, z_vals, out.weights,
-                                             cfg.number_fine_samples, cfg.use_pallas)
-        Sf = samples_fine.shape[1]
-        dirs_fine = dirs[:, None, :].expand(dirs.shape[0], Sf, 3)
-        raw_f = _run("model_fine", samples_fine, dirs_unit)
-        out_f = raw2outputs(raw_f, z_fine, dirs_fine, noise, cfg.white_background, gen)
-        result.update(rgb_fine=out_f.rgb, densities=out_f.density,
-                      ray_samples=samples_fine, depth=out_f.depth)
-        return result
-
-    def _warp(samples, pose2, R, S):
-        rows = warp_field_inputs(cfg, encoders, samples, pose2, R, S)
-        return models["model_warp_field"](rows).reshape(R, S, 3)
-
-    def smpl_nerf_fn(batch, gen, train):
-        samples, z_vals = coarse_sampling(batch["ray_translation"], batch["ray_direction"],
-                                          cfg.near, cfg.far, cfg.number_coarse_samples, gen)
-        noise = cfg.sigma_noise_std if train else 0.0
-        origins = batch["ray_translation"]
-        dirs = batch["ray_direction"]
-        R, S = samples.shape[:2]
-        pose2 = two_joint_pose(cfg, batch)
-
-        warp = _warp(samples, pose2, R, S)
-        warped = samples + warp
-        samples_dirs = warped - origins[:, None, :]
-        raw = _run("model_coarse", warped, _normalize(samples_dirs))
-        out = raw2outputs(raw, z_vals, samples_dirs, noise, cfg.white_background, gen)
-        result = {"rgb_coarse": out.rgb, "warp": warp, "ray_samples": samples,
-                  "warped_samples": warped, "densities": out.density}
-        if not cfg.run_fine:
-            result["rgb_fine"] = out.rgb
-            return result
-        z_fine, samples_fine = fine_sampling(origins, dirs, z_vals, out.weights,
-                                             cfg.number_fine_samples, cfg.use_pallas)
-        Sf = samples_fine.shape[1]
-        warp_f = _warp(samples_fine, pose2, R, Sf)
-        warped_f = samples_fine + warp_f
-        fine_dirs = warped_f - origins[:, None, :]
-        # the fine net sees the per-sample unit directions of the WARPED samples
-        raw_f = _run("model_fine", warped_f, _normalize(fine_dirs))
-        # but the reference integrates the fine pass with the UNwarped per-ray
-        # direction (smpl_nerf_pipeline.py:95-98)
-        dirs_fine = dirs[:, None, :].expand(R, Sf, 3)
-        out_f = raw2outputs(raw_f, z_fine, dirs_fine, noise, cfg.white_background, gen)
-        result.update(rgb_fine=out_f.rgb, warp=warp_f, ray_samples=samples_fine,
-                      warped_samples=warped_f, densities=out_f.density)
-        return result
-
-    def _append_fn(pose_of_batch: Callable):
-        def fn(batch, gen, train):
-            samples, z_vals = coarse_sampling(batch["ray_translation"], batch["ray_direction"],
-                                              cfg.near, cfg.far, cfg.number_coarse_samples, gen)
-            noise = cfg.sigma_noise_std if train else 0.0
-            origins = batch["ray_translation"]
-            dirs = batch["ray_direction"]
-            R = samples.shape[0]
-            pose = pose_of_batch(batch)
-            pose_feat = (encoders["human_pose"].encode(pose) if cfg.human_pose_encoding
-                         else pose)
-            dirs_exp = dirs[:, None, :].expand(samples.shape)
-            dirs_unit = _normalize(dirs)[:, None, :]
-            raw = _run("model_coarse", samples, dirs_unit, prefix=pose_feat)
-            out = raw2outputs(raw, z_vals, dirs_exp, noise, cfg.white_background, gen)
-            result = {"rgb_coarse": out.rgb, "densities": out.density, "ray_samples": samples}
-            if not cfg.run_fine:
-                result["rgb_fine"] = out.rgb
-                return result
-            z_fine, samples_fine = fine_sampling(origins, dirs, z_vals, out.weights,
-                                                 cfg.number_fine_samples, cfg.use_pallas)
-            Sf = samples_fine.shape[1]
-            dirs_fine = dirs[:, None, :].expand(R, Sf, 3)
-            raw_f = _run("model_fine", samples_fine, dirs_unit, prefix=pose_feat)
-            out_f = raw2outputs(raw_f, z_fine, dirs_fine, noise, cfg.white_background, gen)
-            result.update(rgb_fine=out_f.rgb, densities=out_f.density,
-                          ray_samples=samples_fine)
-            return result
-        return fn
-
-    if cfg.model_type == "smpl_nerf":
-        fn = smpl_nerf_fn
-    elif cfg.model_type == "append_to_nerf":
-        fn = _append_fn(lambda batch: two_joint_pose(cfg, batch))
-    elif cfg.model_type == "append_smpl_params":
-        fn = _append_fn(lambda batch: batch["human_pose"])
-    else:
-        fn = nerf_fn
-    return Pipeline(fn, cfg, models, encoders)
+    return Pipeline(FamilyPasses(cfg, models, encoders))

@@ -1,32 +1,66 @@
-"""Batched rendering of a whole ray dataset from a run directory.
+"""Batched rendering of a whole ray dataset (counterpart of
+smpl_nerf_tpu/training/solver.py:Solver.render_rays_batched).
 
-Counterparts of smpl_nerf_tpu/training/solver.py:Solver.render_rays_batched
-and smpl_nerf_tpu/cli/inference.py:render_dataset (the full renderer; the
-`--fast` foreground-culled and occupancy renderers are not ported yet).
-
-Rays are cut into chunks of `batch_size`; the last chunk is padded with its
-LAST ray (never ray 0), and each ray's `human_pose` is gathered from the
-per-image pose table through its image index.
+Rays are cut into chunks of `batch_size` (`batch_bounds`); the last chunk is
+padded with its LAST ray (`padded_rows`), and each ray's `human_pose` is
+gathered from the per-image pose table through its image index. The
+occupancy renderer's auto budget (`cli/inference._auto_cap_fraction`)
+replays the same batches through the same two functions. A culled renderer
+(`render/fast.py`) takes the pipeline's place through `render_fn`, or
+through `render_fn_per_image`, which aligns the batches to image boundaries
+and is called once per image, so that the occupancy renderer bakes one grid
+per body pose and only one is alive at a time. `cli/inference.render_dataset`
+renders a run directory through it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.data.datasets import RayData
 from smpl_nerf_tpu_torch.pipelines import Pipeline, RenderConfig, build_pipeline
 from smpl_nerf_tpu_torch.training import checkpoints
 from smpl_nerf_tpu_torch.training.factory import build_models_and_params
 
 
+def image_spans(num_rays: int, num_images: int, per_image: bool) -> List[tuple]:
+    """(image, lo, hi) of the spans that no batch crosses: with per_image one
+    per image, the rays cut into num_images equal spans, else the whole
+    dataset as one span with image None."""
+    if not per_image:
+        return [(None, 0, num_rays)]
+    hw = num_rays // max(1, num_images)
+    return [(i, i * hw, (i + 1) * hw) for i in range(num_images)]
+
+
+def batch_bounds(num_rays: int, num_images: int, batch_size: int,
+                 per_image: bool) -> Iterator[tuple]:
+    """(image, lo, hi) of every batch in render order: rays lo..hi-1 of one
+    span (`image_spans`), padded to batch_size by `padded_rows`."""
+    for image, span_lo, span_hi in image_spans(num_rays, num_images, per_image):
+        for lo in range(span_lo, span_hi, batch_size):
+            yield image, lo, min(lo + batch_size, span_hi)
+
+
+def padded_rows(lo: int, hi: int, batch_size: int, device=None) -> torch.Tensor:
+    """The ray indices of one batch: lo..hi-1, then its last ray hi-1 repeated
+    up to batch_size (never ray 0, whose duplicates would compete in a culled
+    renderer's top-K)."""
+    return torch.arange(lo, lo + batch_size, device=device).clamp_(max=hi - 1)
+
+
 @torch.no_grad()
 def render_rays_batched(pipeline: Pipeline, data: RayData, batch_size: int,
-                        device: torch.device) -> np.ndarray:
-    """rgb_fine [N, 3] of every ray of `data`, on the host."""
-    n = data.num_rays
+                        device: torch.device, render_fn: Optional[Callable] = None,
+                        render_fn_per_image: Optional[Callable] = None) -> np.ndarray:
+    """rgb_fine [N, 3] of every ray of `data`, on the host.
+
+    render_fn: batch -> rgb [batch_size, 3] in place of the pipeline.
+    render_fn_per_image: image index -> such a render_fn; batches then never
+    mix two images' rays.
+    """
     arrays = {"ray_translation": torch.as_tensor(data.origins, dtype=torch.float32,
                                                  device=device),
               "ray_direction": torch.as_tensor(data.directions, dtype=torch.float32,
@@ -34,16 +68,19 @@ def render_rays_batched(pipeline: Pipeline, data: RayData, batch_size: int,
     image_indices = torch.as_tensor(data.image_indices, dtype=torch.long, device=device)
     pose_table = (torch.as_tensor(data.human_poses, dtype=torch.float32, device=device)
                   if data.human_poses is not None else None)
-    out = torch.empty((n, 3), dtype=torch.float32, device=device)
-    for lo in range(0, n, batch_size):
-        idx = torch.arange(lo, min(lo + batch_size, n), device=device)
-        real = idx.shape[0]
-        if real < batch_size:
-            idx = torch.cat([idx, idx[-1:].expand(batch_size - real)])
+    out = torch.empty((data.num_rays, 3), dtype=torch.float32, device=device)
+    fn, current = render_fn, None
+    for image, lo, hi in batch_bounds(data.num_rays, data.num_images, batch_size,
+                                      render_fn_per_image is not None):
+        if image is not None and image != current:
+            # the factory is called lazily per image: one baked grid at a time
+            fn, current = render_fn_per_image(image), image
+        idx = padded_rows(lo, hi, batch_size, device)
         batch = {k: v[idx] for k, v in arrays.items()}
         if pose_table is not None:
             batch["human_pose"] = pose_table[image_indices[idx]]
-        out[lo:lo + real] = pipeline(batch)["rgb_fine"][:real]
+        rgb = fn(batch) if fn is not None else pipeline(batch)["rgb_fine"]
+        out[lo:hi] = rgb[:hi - lo]
     return out.cpu().numpy()
 
 
@@ -56,12 +93,3 @@ def build_from_run(run_dir: str, args, device: torch.device) -> Pipeline:
             raise FileNotFoundError(f"{run_dir} has no {name}.pt")
         model.load_state_dict(state_dicts[name])
     return build_pipeline(RenderConfig.from_args(args), models, encoders)
-
-
-def render_dataset(args, run_dir: str, data: RayData, batch_size: Optional[int] = None,
-                   device=DEFAULT_DEVICE) -> np.ndarray:
-    """Render every image of `data` through the run's weights -> [N, h, w, 3]."""
-    dev = resolve_device(device)
-    pipeline = build_from_run(run_dir, args, dev)
-    rgb = render_rays_batched(pipeline, data, int(batch_size or args.batchsize_val), dev)
-    return rgb.reshape(data.num_images, data.h, data.w, 3)

@@ -189,7 +189,8 @@ def _imports(path):
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in os.listdir(REPO)
+             if n == "chip_smoke.py" or n.endswith("_torch.py")]
     for root, _, names in os.walk(PORT_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -209,6 +210,7 @@ def test_port_imports_no_jax_flax_or_jax_package():
 def test_port_entry_points_load_without_jax():
     code = ("import sys\n"
             "import smpl_nerf_tpu_torch.cli.render_path, smpl_nerf_tpu_torch.render.batched\n"
+            "import smpl_nerf_tpu_torch.cli.inference, smpl_nerf_tpu_torch.render.fast\n"
             "import smpl_nerf_tpu_torch.ops.sample_pdf_cuda, smpl_nerf_tpu_torch.ops.fused_mlp_v2\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'smpl_nerf_tpu')]\n"
@@ -222,8 +224,8 @@ def test_port_entry_points_load_without_jax():
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
-    from smpl_nerf_tpu_torch.cli import render_path
-    from smpl_nerf_tpu_torch.render.batched import render_dataset
+    from smpl_nerf_tpu_torch.cli import inference, render_path
+    from smpl_nerf_tpu_torch.cli.inference import render_dataset
     from smpl_nerf_tpu_torch.training import factory
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -237,4 +239,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         render_path.render_path(str(tmp_path), number_steps=1, resolution=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         factory.build_models_and_params(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference.inference([f"--inf_run_dir={tmp_path}"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -152,7 +152,7 @@ def test_load_dataset_and_gather_batch_match_jax(rng, tmp_path, model_type, with
 def test_loader_refuses_what_is_not_ported_and_a_miscounted_split(rng, tmp_path):
     split = str(tmp_path / "train")
     _write_split(rng, split)
-    for model_type in ("smpl", "vertex_sphere", "original_nerf", "smpl_estimator"):
+    for model_type in ("smpl", "vertex_sphere", "smpl_estimator"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             datasets.load_dataset(split, model_type)
     cv2.imwrite(os.path.join(split, "stray.png"), _image(rng, 6, 6, 3))

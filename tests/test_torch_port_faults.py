@@ -4,11 +4,13 @@
 run directory as the JAX package's does (serving reads the frame order back
 from it), byte for byte, and writes none where the dataset has none. The
 training flags whose machinery is not ported raise, naming the flag, before
-any data is loaded; `--render_gif` (on by default) only says that the GIF
-step is skipped. Sizes: a 4x4 two-view dataset, one step of 2x16 nets.
+any data is loaded; `--render_gif` (on by default) re-renders train + val into
+<run_dir>/inference.gif and img_XXX.png, and nothing when it is 0. Sizes: a
+4x4 two-view dataset, one step of 2x16 nets.
 """
 import os
 
+import imageio.v3 as iio
 import numpy as np
 import pytest
 
@@ -71,16 +73,21 @@ def _train_argv(data_dir, *extra):
 
 @pytest.mark.parametrize("render_gif", [1, 0])
 def test_train_saves_the_dataset_config_and_says_the_gif_step_is_skipped(
-        rng, tmp_path, capsys, render_gif):
+        rng, tmp_path, render_gif):
     data_dir = _dataset(rng, str(tmp_path / "data"), True)
     log_dir = str(tmp_path / "run")
     train_cli.train(_train_argv(data_dir, f"--render_gif={render_gif}"), log_dir=log_dir,
                     device="cpu")
     with open(os.path.join(log_dir, DATASET_CONFIG)) as fh:
         assert fh.read() == DATASET_CONFIG_TEXT
-    skip_lines = [line for line in capsys.readouterr().out.splitlines()
-                  if line == train_cli.GIF_SKIPPED]
-    assert len(skip_lines) == render_gif
+    gif_path = os.path.join(log_dir, "inference.gif")
+    pngs = sorted(n for n in os.listdir(log_dir) if n.endswith(".png"))
+    if render_gif:
+        # the 2 train + 2 val views, re-rendered after training
+        assert iio.imread(gif_path, index=None).shape == (4, 4, 4, 3)
+        assert pngs == [f"img_{i:03d}.png" for i in range(4)]
+    else:
+        assert not os.path.exists(gif_path) and pngs == []
 
 
 @pytest.mark.parametrize("flag,value", [
