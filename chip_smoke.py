@@ -26,7 +26,7 @@ unguarded, so that any failure exits non-zero:
      (fused expert tiles: seeded sorted-tile plans with padding slots and empty
      trailing tiles at E=8000, L=413,696 and at E_occ=329, L=57,344, D=42,
      H=32, O=4, tile 256, in bf16 and in float32; its headline numbers come
-     from phase 9, on the plan of a chunk that the distill path serves) and F
+     from phase 10, on the plan of a chunk that the distill path serves) and F
      (relu-matmul at n=131,072, W=256/512/1024, beside the library call
      torch.relu(x @ w)); then A, B, C and D at a culled fine pass's shapes (K =
      711 rays of a 2048-ray batch: K, K*64, K*128 and K*192 rows, none a
@@ -69,7 +69,24 @@ unguarded, so that any failure exits non-zero:
      training run and its val split at --inf_fast 0, 1 and 2, each with its
      launch counts (one grid bake per val view at 2), scores.json (mse, psnr,
      ssim, rlpips), the PNGs and walking.gif;
-  9. distillation: `cli.distill.main` on that dataset's val split (2 views of
+  9. the SMPL-driven families: configs/config.txt runs at full width (8x256
+     nets, 64 coarse samples, bf16, sigma noise 1, the 3,120-vertex procedural
+     human) on phase 7's dataset, whose transforms.json carries the poses and
+     betas. dummy_dynamic through the kernel path (--use_fused_mlp=-1, the
+     auto mode: B forward and C backward on rows whose directions differ per
+     sample) and append_vertex_locations_to_nerf with --run_fine=1
+     --use_fused_mlp=1 --use_pallas=1 (A, and D at in_dim 148), each:
+     SMPL_STEPS training steps of 2048 rays with their launch counts, the
+     plain path from the same seed (its first loss within LOSS_REL),
+     inference_torch on the run (PNGs, walking.gif, scores.json), the val
+     views through both paths on the same weights (both nets' sigma bias
+     raised by CULL_FINE_SIGMA_BIAS), ms per step and per 128x128 view in
+     turns, one profiled step and render, and the device ms of the step's
+     LBS and (dummy_dynamic) vertex attention; dummy_dynamic again with
+     --images_per_batch 2 (every gathered batch within 2 images); then
+     image_wise_dynamic for one epoch from the dummy_dynamic run's coarse
+     net, frozen: the pose error printed and the arm angles moved;
+ 10. distillation: `cli.distill.main` on that dataset's val split (2 views of
      64x64, one 4096-ray chunk each) with a seeded full-width `nerf` teacher
      (arm_angles.txt widths, --use_fused_mlp=2, so the teacher runs through
      kernel B): grid 20 (8000 experts), hidden 32, 192 samples, chunk 4096,
@@ -90,12 +107,12 @@ unguarded, so that any failure exits non-zero:
      kernel-path view; and kernel E against its plain version, timed, on the
      sorted-tile plan of view 0's chunk through the compact field (bf16, the
      serving type, and float32): the kernels line's numbers for E;
- 10. roofline: `cli.mlp_roofline.main` part `chain` (W=256/512/1024, depth 8,
+ 11. roofline: `cli.mlp_roofline.main` part `chain` (W=256/512/1024, depth 8,
      131,072 rows: launches F; the kernel chain within one bf16 step of the
      largest output of the library chain, and not dead) and part
      `fusedmlp` at W=256 (B, C and D);
- 11. one JSON line of per-kernel results (with each path's launches);
- 12. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+ 12. one JSON line of per-kernel results (with each path's launches);
+ 13. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Tolerances, each with its reason:
   * sample_pdf (kernel A): the kernel's warp-shuffle cumsum adds in another
@@ -165,12 +182,14 @@ Tolerances, each with its reason:
     each row's result depends on that row alone: max |diff| <= 1e-4.
   * kernel path vs plain path training losses: the same two roundings, in
     the forward and in the gradients, from the same weights, batches and
-    jitter: each of the first 8 steps' losses within 10 % of the other path's.
+    jitter: each of the first 8 steps' losses within 10 % of the other path's
+    (the SMPL-driven families: the first step's).
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -224,6 +243,7 @@ DISTILL_GRID, DISTILL_SAMPLES, DISTILL_CHUNK = 20, 192, 4096
 DISTILL_STEPS, FINETUNE_STEPS, FINETUNE2_STEPS, DISTILL_REPS = 300, 100, 40, 3
 OCCUPIED_SHARE = (0.05, 0.35)   # bisection target; the contract is 2-50 %
 ROOFLINE_REPS, ROOFLINE_DEPTH = 5, 8
+SMPL_STEPS, SMPL_IPB = 4, 2     # steps per SMPL-driven training run; its --images_per_batch
 
 
 def fail(msg: str) -> None:
@@ -409,14 +429,17 @@ def phase_fused_mlp_v1(device) -> dict:
     """Kernel D on pre-encoded rows of the configs/config.txt net: 621-wide
     pose prefix (69 joints x (1 + 2*4)), 60 position and 24 direction columns,
     at the append render's two batch sizes: 131,072 rows (a coarse batch, the
-    entry's headline) and 262,144 (a fine batch)."""
+    entry's headline) and 262,144 (a fine batch); and of the
+    append_vertex_locations_to_nerf net, whose prefix is the 64-wide vertex
+    embedding (in_dim 148), at 131,072 rows (by_rows key "148:131072")."""
     from smpl_nerf_tpu_torch.ops import fused_mlp
 
-    net = full_width_net(device, seed=3, additional_input_dim=621)
-    spec = fused_mlp.spec_from_model(net)
-    flat = fused_mlp.flatten_params(spec, net)
     by_rows = {}
-    for rows in (MLP_ROWS, 2 * MLP_ROWS):
+    for add, rows, key in ((621, MLP_ROWS, str(MLP_ROWS)), (621, 2 * MLP_ROWS, str(2 * MLP_ROWS)),
+                           (64, MLP_ROWS, f"148:{MLP_ROWS}")):
+        net = full_width_net(device, seed=3, additional_input_dim=add)
+        spec = fused_mlp.spec_from_model(net)
+        flat = fused_mlp.flatten_params(spec, net)
         g = torch.Generator(device=device).manual_seed(4)
         # encoded columns lie in [-1, 1]; the identity part of the pose prefix too
         x = 2.0 * torch.rand(rows, spec.in_dim, generator=g, device=device) - 1.0
@@ -439,9 +462,9 @@ def phase_fused_mlp_v1(device) -> dict:
               f"{ops_ms:.5f} ms ({flops:.4g} FLOP; {mlp_macs(spec)} MAC/sample), by bytes "
               f"{bytes_ms:.5f} ms ({bytes_moved} B; {(spec.in_dim + 4) * 4} B/sample), "
               f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
-        by_rows[str(rows)] = {"max_abs_err": max_err, "rel_err": rel_err, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-                              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        by_rows[key] = {"max_abs_err": max_err, "rel_err": rel_err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
     return {"name": "fused_mlp_fwd", "route": "cuda",
             "source": "smpl_nerf_tpu_torch/csrc/fused_mlp_fwd.cu",
             "replaces": "smpl_nerf_tpu/ops/fused_mlp.py:139", "parity_ok": True,
@@ -1370,6 +1393,228 @@ def phase_inference(tmp: str, dataset_dir: str, run_dir: str) -> dict:
     return launch_counts()
 
 
+def smpl_family_run(tmp: str, dataset_dir: str, name: str, model_type: str, fused: int,
+                    pallas: int, extra=(), steps: int = SMPL_STEPS):
+    """A full-width configs/config.txt run of an SMPL-driven family (8x256
+    nets, 64 coarse samples, bf16, sigma noise 1, the procedural human): one
+    epoch of `steps` steps of BATCH rays, then one validation pass."""
+    from smpl_nerf_tpu_torch.cli import train as train_cli
+
+    log_dir = os.path.join(tmp, name)
+    solver = train_cli.train(
+        [f"--config={APPEND_CONFIG}", f"--model_type={model_type}",
+         f"--dataset_dir={dataset_dir}", "--num_epochs=1", f"--steps_per_epoch={steps}",
+         f"--batchsize_val={BATCH}", "--seed=1", f"--use_fused_mlp={fused}",
+         f"--use_pallas={pallas}", *extra], log_dir=log_dir, device=DEVICE)
+    return solver, log_dir
+
+
+def check_counts(what: str, counts: dict, expected: dict) -> None:
+    for name, got in counts.items():
+        want = expected.get(name, 0)
+        check(got == want, f"{what}: {name} launched {got} times, expected {want}")
+
+
+def phase_smpl_family(tmp: str, dataset_dir: str, what: str, model_type: str,
+                      kernel_flags: tuple, extra: tuple, per_step: dict,
+                      per_batch: dict) -> tuple:
+    """Train SMPL_STEPS steps of `model_type` through the kernel path
+    (launch counts against per_step and per validation batch), again through
+    the plain path from the same seed (first losses held together), run
+    inference_torch on the kernel-path run's val split (PNGs, GIF,
+    scores.json), hold one rendering of the val views through both paths on
+    the same weights, time steps and 128x128 views in turns, and profile one
+    step. Returns ({path: launch counts}, {path: device ms by kernel},
+    the kernel-path run dir)."""
+    from smpl_nerf_tpu_torch.cli import inference
+    from smpl_nerf_tpu_torch.core.sampling import coarse_sampling
+    from smpl_nerf_tpu_torch.data import datasets
+    from smpl_nerf_tpu_torch.ops.vertex_attention import vertex_attention_warp
+
+    val_dir = os.path.join(dataset_dir, "val")
+    val_batches = -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
+    paths, device_ms = {}, {}
+
+    zero_launch_counts()
+    solver, kernel_dir = smpl_family_run(tmp, dataset_dir, f"{what}_kernel", model_type,
+                                         *kernel_flags, extra)
+    counts = launch_counts()
+    print(f"{what}: cli.train {model_type} configs/config.txt full width, kernel path "
+          f"(--use_fused_mlp={kernel_flags[0]} --use_pallas={kernel_flags[1]} {' '.join(extra)}), "
+          f"{SMPL_STEPS} steps of {BATCH} rays + {val_batches} validation batches: "
+          f"launches {counts}")
+    check_counts(f"{what} training", counts, {
+        k: SMPL_STEPS * per_step.get(k, 0) + val_batches * per_batch.get(k, 0) for k in counts})
+    paths[f"{what}_train"] = counts
+    plain_solver, plain_dir = smpl_family_run(tmp, dataset_dir, f"{what}_plain", model_type,
+                                              0, 0, extra)
+    kernel_loss, plain_loss = solver.history["step_loss"], plain_solver.history["step_loss"]
+    print(f"{what}: loss per step, kernel path: " + " ".join(f"{v:.5f}" for v in kernel_loss))
+    print(f"{what}: loss per step, plain path:  " + " ".join(f"{v:.5f}" for v in plain_loss))
+    for path, losses, sol in (("kernel", kernel_loss, solver), ("plain", plain_loss, plain_solver)):
+        check(len(losses) == SMPL_STEPS and bool(np.isfinite(losses).all())
+              and bool(np.isfinite(sol.history["val_loss"]).all()),
+              f"{what}: non-finite loss on the {path} path")
+    rel = abs(kernel_loss[0] - plain_loss[0]) / plain_loss[0]
+    print(f"{what}: first-step loss kernel {kernel_loss[0]:.6f} vs plain {plain_loss[0]:.6f}: "
+          f"relative difference {rel:.3e} (bound {LOSS_REL})")
+    check(rel <= LOSS_REL, f"{what}: kernel path and plain path first losses disagree")
+    for required in ("config.txt", "model_coarse.pt", "model_smpl_estimator.pt"):
+        check(os.path.exists(os.path.join(kernel_dir, required)),
+              f"{what}: the run dir lacks {required}")
+
+    zero_launch_counts()
+    save_dir = os.path.join(tmp, f"{what}_inference")
+    t0 = time.perf_counter()
+    scores = inference.inference([
+        f"--inf_run_dir={kernel_dir}", f"--inf_ground_truth_dir={val_dir}",
+        f"--inf_save_dir={save_dir}", f"--inf_batchsize={BATCH}", f"--device={DEVICE}"])
+    counts = launch_counts()
+    print(f"{what}: inference_torch on the kernel-path run, {VAL_VIEWS} val views "
+          f"{TRAIN_RES}x{TRAIN_RES}: launches {counts}, {time.perf_counter() - t0:.2f} s; "
+          + " ".join(f"{k} {v:.5f}" for k, v in scores.items()))
+    check_counts(f"{what} inference", counts,
+                 {k: val_batches * per_batch.get(k, 0) for k in counts})
+    paths[f"{what}_inference"] = counts
+    with open(os.path.join(save_dir, "scores.json")) as fh:
+        saved = json.load(fh)
+    for key in ("mse", "psnr", "ssim", "rlpips"):
+        check(key in saved and bool(np.isfinite(saved[key])),
+              f"{what} inference: scores.json lacks a finite {key}")
+    check_rerenders(save_dir, VAL_VIEWS, TRAIN_RES, "walking.gif")
+
+    # the val views through both paths on the kernel-path run's weights, with
+    # both nets' sigma bias raised as the culled runs' fine net's is (every ray
+    # opaque before its last sample, whose 1e10-long interval would otherwise
+    # let a density within rounding of 0 set a ray's colour apart)
+    held_dir = os.path.join(tmp, f"{what}_held")
+    shutil.copytree(kernel_dir, held_dir)
+    for key in ("model_coarse", "model_fine"):
+        path = os.path.join(held_dir, f"{key}.pt")
+        sd = torch.load(path, map_location="cpu")
+        sd["sigma_out_layer.bias"] += CULL_FINE_SIGMA_BIAS
+        torch.save(sd, path)
+    args = inference.setup_from_run_dir(held_dir)
+    data = datasets.load_dataset(val_dir, model_type)
+    views = {}
+    for path, (fused, pallas) in (("kernel", kernel_flags), ("plain", (0, 0))):
+        args.use_fused_mlp, args.use_pallas = fused, pallas
+        views[path] = inference.render_dataset(args, held_dir, data, batch_size=BATCH,
+                                               device=DEVICE)
+    diff = abs(views["kernel"] - views["plain"])
+    print(f"{what}: val views, same weights, kernel vs plain path: max|diff|={diff.max():.4e} "
+          f"(bound {PIXEL_MAX}), mean|diff|={diff.mean():.4e} (bound {PIXEL_MEAN})")
+    check(bool(np.isfinite(views["kernel"]).all()), f"{what}: non-finite kernel render")
+    check(float(diff.max()) <= PIXEL_MAX and float(diff.mean()) <= PIXEL_MEAN,
+          f"{what}: kernel path and plain path renders disagree")
+
+    ms = {"plain": [], "kernel": []}
+    view_ms = {"plain": [], "kernel": []}
+    out = os.path.join(tmp, f"{what}_views.npy")
+    render(kernel_dir, out)                              # warm-up of the 128x128 renders
+    for path in ("plain", "kernel", "kernel", "plain"):
+        sol, _ = smpl_family_run(tmp, dataset_dir, f"{what}_{path}_timed", model_type,
+                                 *(kernel_flags if path == "kernel" else (0, 0)), extra)
+        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+        _, sec = render(kernel_dir if path == "kernel" else plain_dir, out)
+        view_ms[path].append(1e3 * sec / VIEWS)
+    print(f"{what}: ms per step of {BATCH} rays (host clock, synchronised, median without the "
+          f"first step; plain/kernel/kernel/plain): kernel path "
+          f"{statistics.mean(ms['kernel']):.1f} {ms['kernel']}, plain path "
+          f"{statistics.mean(ms['plain']):.1f} {ms['plain']}")
+    print(f"{what}: ms per {RES}x{RES} view through render_path (host clock, in the same "
+          f"turns): kernel path {statistics.mean(view_ms['kernel']):.1f} {view_ms['kernel']}, "
+          f"plain path {statistics.mean(view_ms['plain']):.1f} {view_ms['plain']}")
+
+    # one step and one 2-view render of the kernel path under the profiler; the
+    # SMPL work of a step timed apart (CUDA events, median of 5)
+    train = datasets.load_dataset(os.path.join(dataset_dir, "train"), model_type)
+    arrays = solver.device_arrays(train, model_type)
+    batch = solver.gather(arrays, np.arange(BATCH) * 3 % train.num_rays)
+    solver.train_step(batch, solver.generator)
+    device_ms[f"{what}_train"] = profiled(f"one kernel-path {model_type} training step",
+                                          lambda: solver.train_step(batch, solver.generator))
+    device_ms[f"{what}_render"] = profiled(f"kernel-path {model_type} render of {VIEWS} views",
+                                           lambda: render(kernel_dir, out))
+    passes, cfg = solver.pipeline.passes, solver.pipeline.cfg
+    with torch.no_grad():
+        lbs_ms = time_ms(lambda: passes.goal_verts_table(batch["image_indices"]), reps=5,
+                         warmup=1)
+        pose_ms = time_ms(lambda: passes.pose(batch), reps=5, warmup=1)
+        print(f"{what}: device ms per step: LBS of the batch's poses {lbs_ms:.3f}, the whole "
+              f"per-ray conditioning (LBS, table gathers"
+              f"{', vertex embedder' if model_type != 'dummy_dynamic' else ''}) {pose_ms:.3f}")
+        if model_type == "dummy_dynamic":
+            goal, warps = passes.pose(batch)
+            samples, _ = coarse_sampling(batch["ray_translation"], batch["ray_direction"],
+                                         cfg.near, cfg.far, cfg.number_coarse_samples)
+            att_ms = time_ms(lambda: vertex_attention_warp(
+                samples, goal, warps, cfg.warp_radius, cfg.warp_temperature), reps=5, warmup=1)
+            print(f"{what}: device ms per step: vertex attention over {samples.shape[0]} x "
+                  f"{samples.shape[1]} samples and {goal.shape[1]} vertices {att_ms:.3f}")
+    return paths, device_ms, kernel_dir
+
+
+def phase_images_per_batch(tmp: str, dataset_dir: str) -> dict:
+    """dummy_dynamic on the kernel path with --images_per_batch 2: every
+    gathered batch (training and validation) holds rays of at most 2 images."""
+    from smpl_nerf_tpu_torch.training import solver as solver_mod
+
+    distinct = []
+    gather = solver_mod.Solver.gather
+
+    def recording_gather(self, arrays, idx):
+        batch = gather(self, arrays, idx)
+        distinct.append(int(torch.unique(batch["image_indices"]).numel()))
+        return batch
+
+    zero_launch_counts()
+    solver_mod.Solver.gather = recording_gather
+    try:
+        sol, _ = smpl_family_run(tmp, dataset_dir, "dynamic_ipb", "dummy_dynamic", -1, 1,
+                                 (f"--images_per_batch={SMPL_IPB}",))
+    finally:
+        solver_mod.Solver.gather = gather
+    counts = launch_counts()
+    print(f"images_per_batch {SMPL_IPB}: dummy_dynamic kernel path, images per gathered batch "
+          f"{distinct} (training steps first), losses "
+          + " ".join(f"{v:.5f}" for v in sol.history["step_loss"]) + f"; launches {counts}")
+    check(len(distinct) >= SMPL_STEPS and max(distinct) <= SMPL_IPB,
+          f"images_per_batch {SMPL_IPB}: a batch spans more images ({distinct})")
+    check(max(distinct[:SMPL_STEPS]) == SMPL_IPB,
+          f"images_per_batch {SMPL_IPB}: no training batch drew from {SMPL_IPB} images")
+    check(bool(np.isfinite(sol.history["step_loss"]).all()),
+          f"images_per_batch {SMPL_IPB}: non-finite loss")
+    return counts
+
+
+def phase_image_wise(tmp: str, dataset_dir: str, coarse_run: str) -> dict:
+    """image_wise_dynamic: one epoch (every train view, two 2048-ray steps
+    each) optimising the two arm angles through the dummy_dynamic run's coarse
+    net, frozen (--load_coarse_model). No kernel is on this path."""
+    from smpl_nerf_tpu_torch.cli import train as train_cli
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    final, errors = train_cli.train(
+        [f"--config={APPEND_CONFIG}", "--model_type=image_wise_dynamic",
+         f"--dataset_dir={dataset_dir}", "--num_epochs=1", "--seed=1",
+         f"--load_coarse_model={coarse_run}"], log_dir=os.path.join(tmp, "image_wise"),
+        device=DEVICE)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    arms = [float(final["smpl_estimator"][k]) for k in ("arm_angle_l", "arm_angle_r")]
+    print(f"image_wise: pose errors per epoch {errors}, arm angles {arms} (from 0), "
+          f"{seconds:.2f} s host clock; launches {counts}")
+    check(bool(np.isfinite(errors).all()) and all(np.isfinite(arms)),
+          "image_wise: non-finite pose error or arm angles")
+    check(any(a != 0.0 for a in arms), "image_wise: the arm angles did not move")
+    coarse = torch.load(os.path.join(coarse_run, "model_coarse.pt"), map_location="cpu")
+    check(all(torch.equal(v.cpu(), coarse[k]) for k, v in final["model_coarse"].items()),
+          "image_wise: the frozen coarse net moved")
+    return counts
+
+
 def phase_distill(tmp: str, dataset_dir: str) -> tuple:
     """The distilled-expert serving path through `cli.distill.main`; returns
     (launch counts of the serving run, device ms per launch of a profiled view,
@@ -1627,6 +1872,23 @@ def main() -> None:
         dataset_dir = make_dataset(tmp, smpl_runs[0])
         paths["train"], device_ms["train"], train_dir = phase_training(tmp, dataset_dir)
         paths["inference"] = phase_inference(tmp, dataset_dir, train_dir)
+        smpl_paths, smpl_ms, dynamic_run = phase_smpl_family(
+            tmp, dataset_dir, "dynamic", "dummy_dynamic", (-1, 1), (),
+            {"fused_mlp_v2_fwd": 1, "fused_mlp_v2_bwd": 1}, {"fused_mlp_v2_fwd": 1})
+        paths.update(smpl_paths)
+        device_ms.update(smpl_ms)
+        paths["dynamic_ipb_train"] = phase_images_per_batch(tmp, dataset_dir)
+        smpl_paths, smpl_ms, _ = phase_smpl_family(
+            tmp, dataset_dir, "append_vertex", "append_vertex_locations_to_nerf", (1, 1),
+            ("--run_fine=1",), {"sample_pdf": 1, "fused_mlp_fwd": 2},
+            {"sample_pdf": 1, "fused_mlp_fwd": 2})
+        paths.update(smpl_paths)
+        device_ms.update(smpl_ms)
+        paths["image_wise"] = phase_image_wise(tmp, dataset_dir, dynamic_run)
+        smpl_paths = [p for p in paths if p.startswith(("dynamic", "append_vertex"))]
+        for name in ("sample_pdf", "fused_mlp_v2_fwd", "fused_mlp_v2_bwd", "fused_mlp_fwd"):
+            check(sum(paths[p][name] for p in smpl_paths) > 0,
+                  f"{name} was launched on no path of the SMPL-driven families")
         paths["distill"], device_ms["distill"], on_path = phase_distill(tmp, dataset_dir)
         paths["roofline"] = phase_roofline()
     # kernel E's headline is the plan the distill path launched, in its serving type

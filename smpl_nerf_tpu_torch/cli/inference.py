@@ -17,7 +17,11 @@ function's docstring says, where the JAX function's code writes
 walking.gif through `save_rerenders`.
 
 Runs on the card unless `--device cpu` asks for the plain PyTorch versions.
-The vertex families need the SMPL model and are not ported yet.
+The SMPL-driven families (dummy_dynamic, append_vertex_locations_to_nerf,
+image_wise_dynamic) render with the SMPL model the run trained with and the
+pose table of the split being rendered; the culled renderers render them in
+full, as the JAX package's do. smpl, warp, vertex_sphere and smpl_estimator
+runs are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,13 +38,11 @@ from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.data import datasets, gif, png
 from smpl_nerf_tpu_torch.data.datasets import RayData
 from smpl_nerf_tpu_torch.evaluation.scores import print_scores
-from smpl_nerf_tpu_torch.pipelines import _not_ported
+from smpl_nerf_tpu_torch.pipelines import DYNAMIC_FAMILIES, PORTED_MODEL_TYPES, _not_ported
 from smpl_nerf_tpu_torch.render import batched
 from smpl_nerf_tpu_torch.render import fast as fast_mod
 from smpl_nerf_tpu_torch.training import checkpoints
-
-VERTEX_FAMILIES = ("vertex_sphere", "dummy_dynamic", "image_wise_dynamic",
-                   "append_vertex_locations_to_nerf")
+from smpl_nerf_tpu_torch.training.factory import dataset_extras, smpl_model_for
 # the families whose occupancy grid depends on the body pose
 POSE_FAMILIES = ("smpl_nerf", "append_to_nerf", "append_smpl_params")
 # the auto cull budget covers the worst batch's foreground rays times
@@ -72,12 +74,15 @@ def inference_parser() -> config_mod.ConfigArgumentParser:
 
 def setup_from_run_dir(run_dir: str, model_type: Optional[str] = None):
     """The run's resolved flags from run_dir/config.txt (model_type overridden
-    when given)."""
+    when given); for the SMPL-driven families with the SMPL model loaded onto
+    them (`factory.smpl_model_for`), as the JAX function loads it."""
     args = checkpoints.load_config(run_dir)
     if model_type:
         args.model_type = model_type
-    if args.model_type in VERTEX_FAMILIES:
-        raise _not_ported(f"inference of model_type {args.model_type!r} (the SMPL model)")
+    if args.model_type not in PORTED_MODEL_TYPES:
+        raise _not_ported(f"inference of model_type {args.model_type!r}")
+    if args.model_type in DYNAMIC_FAMILIES:
+        smpl_model_for(args)
     return args
 
 
@@ -139,7 +144,7 @@ def render_dataset(args, run_dir: str, data: RayData, fast: int = 0, cap_fractio
     warns when an explicit cap_fraction lies below that derived budget.
     """
     dev = resolve_device(device)
-    pipeline = batched.build_from_run(run_dir, args, dev)
+    pipeline = batched.build_from_run(run_dir, args, dev, dataset_extras(args, data))
     bs = int(batch_size or args.batchsize_val)
     render_fn = render_fn_per_image = None
     if int(fast) >= 2:

@@ -6,10 +6,15 @@ Same CLI contract as the JAX package's train.py: model_type dispatch, dataset
 loading from `<dataset_dir>/train` and `<dataset_dir>/val`, model
 construction, solver training, run-dir saving (config.txt + model_*.pt).
 Runs on the card unless `--device cpu` asks for the plain PyTorch versions.
-Ported for nerf, original_nerf, smpl_nerf, append_to_nerf and
-append_smpl_params; the estimator, image-wise and SMPL-model branches are not
-ported yet. A flag whose machinery is not ported (`UNPORTED_FLAGS`) raises
-when it is set to anything but its default, before any data is loaded.
+Ported for nerf, original_nerf, smpl_nerf, append_to_nerf,
+append_smpl_params and the SMPL-driven families dummy_dynamic,
+append_vertex_locations_to_nerf and image_wise_dynamic (its own trainer,
+`training/image_wise.py`). Those get the SMPL model as the JAX package picks
+it (`factory.smpl_model_for`: the procedural human unless a licensed pkl is
+named), and --use_gmm_loss gets the canonical vertices of that model. The
+smpl, warp, vertex_sphere and smpl_estimator families are not ported yet. A
+flag whose machinery is not ported (`UNPORTED_FLAGS`) raises when it is set
+to anything but its default, before any data is loaded.
 
 With `--render_gif` (on by default), a nerf, smpl_nerf or append run then
 re-renders its train + val images in creation order into
@@ -33,9 +38,11 @@ from smpl_nerf_tpu_torch import config as config_mod
 from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.cli.inference import inference_gif
 from smpl_nerf_tpu_torch.data import datasets
+from smpl_nerf_tpu_torch.models import smpl as smpl_mod
 from smpl_nerf_tpu_torch.pipelines import RenderConfig, _not_ported, build_pipeline
 from smpl_nerf_tpu_torch.training import checkpoints
-from smpl_nerf_tpu_torch.training.factory import build_models_and_params
+from smpl_nerf_tpu_torch.training.factory import (build_models_and_params, dataset_extras,
+                                                  smpl_model_for)
 from smpl_nerf_tpu_torch.training.solver import Solver
 
 
@@ -43,7 +50,6 @@ from smpl_nerf_tpu_torch.training.solver import Solver
 # what the JAX package does with each, and what lifts the guard
 UNPORTED_FLAGS = {
     "check_nans": "the non-finite loss check and its parameter report",
-    "images_per_batch": "drawing each batch from a few images",
     "tensor_parallel": "width-sharded nets",
     "mesh_shape": "a device mesh",
     "multihost": "multi-host runs",
@@ -65,15 +71,15 @@ def _default_log_dir(args) -> str:
 
 
 def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
-          device=DEFAULT_DEVICE) -> Solver:
+          device=DEFAULT_DEVICE):
+    """The trained Solver; for image_wise_dynamic what `train_image_wise`
+    returns (the final state dicts and the per-epoch pose errors)."""
     parser = config_mod.config_parser()
     args = parser.parse_args(argv)
     if args.model_type not in config_mod.MODEL_TYPES:
         raise ValueError("The model type you stated is unknown")
     if args.model_type not in datasets.LOADABLE_MODEL_TYPES:
         raise _not_ported(f"training of model_type {args.model_type!r}")
-    if int(getattr(args, "use_gmm_loss", 0)):
-        raise _not_ported("--use_gmm_loss (the GMM density prior)")
     _refuse_unported_flags(args, parser)
     dev = resolve_device(device)
     seed = int(getattr(args, "seed", 0))
@@ -82,21 +88,34 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
 
     train_data = datasets.load_dataset(os.path.join(args.dataset_dir, "train"), args.model_type)
     val_data = datasets.load_dataset(os.path.join(args.dataset_dir, "val"), args.model_type)
+    extras = dataset_extras(args, train_data)
+    log_dir = log_dir or _default_log_dir(args)
 
-    models, encoders = build_models_and_params(args, seed=seed, device=dev)
+    if args.model_type == "image_wise_dynamic":
+        from smpl_nerf_tpu_torch.training.image_wise import train_image_wise
+        return train_image_wise(args, parser, train_data, val_data, extras, log_dir,
+                                device=dev)
+
+    models, encoders = build_models_and_params(args, seed=seed, device=dev, extras=extras)
     if args.load_run:
         for name, sd in checkpoints.load_run(args.load_run).items():
             models[name].load_state_dict(sd)
         print("Models loaded from", args.load_run)
 
-    log_dir = log_dir or _default_log_dir(args)
     os.makedirs(log_dir, exist_ok=True)
-    pipeline = build_pipeline(RenderConfig.from_args(args), models, encoders)
-    solver = Solver(pipeline, args, log_dir=log_dir, parser=parser)
+    cfg = RenderConfig.from_args(args)
+    pipeline = build_pipeline(cfg, models, encoders, extras)
+    canonical_vertices = None
+    if cfg.use_gmm_loss and ("smpl_model" in extras or train_data.betas is not None):
+        # the density prior's means: the SMPL model's vertices at the zero pose
+        canonical_vertices = smpl_mod.smpl_forward(
+            smpl_model_for(args), extras["betas"], torch.zeros(69, device=dev))
+    solver = Solver(pipeline, args, log_dir=log_dir, parser=parser,
+                    canonical_vertices=canonical_vertices)
     if args.load_run:
         solver.restore_train_state(args.load_run)
     solver.train(train_data, val_data)
-    checkpoints.save_run(log_dir, solver.eval_params, args, parser, args.dataset_dir)
+    checkpoints.save_run(log_dir, solver.run_state_dicts(), args, parser, args.dataset_dir)
     print("Run saved under", log_dir)
     if int(args.render_gif) and args.model_type in GIF_FAMILIES:
         # the reference renders the whole train + val distribution after

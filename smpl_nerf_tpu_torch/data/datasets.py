@@ -9,7 +9,10 @@ index gather (`training.solver.gather_batch`).
 betas, expression]} beside the PNGs it names. Images are read with
 `data/png.py` in the reference's contract: float32 in [0, 1], **BGR** channel
 order, alpha dropped (the reference trains in BGR and flips only for
-display). Ported for nerf, smpl_nerf, append_to_nerf, append_smpl_params and
+display). Ported for nerf, smpl_nerf, append_to_nerf, append_smpl_params,
+the SMPL-driven families (dummy_dynamic, image_wise_dynamic,
+append_vertex_locations_to_nerf: the same image_pose_map + betas; their rays
+stay stored contiguously per image, which --images_per_batch relies on) and
 original_nerf, whose split directory follows the Blender NeRF schema instead
 (`transforms.json` {camera_angle_x, frames: [{file_path, transform_matrix}]});
 the single-sample, vertex-sphere and estimator loaders are not ported yet.
@@ -28,7 +31,8 @@ from smpl_nerf_tpu_torch.core import rays as rays_mod
 from smpl_nerf_tpu_torch.data import png
 
 LOADABLE_MODEL_TYPES = ("nerf", "smpl_nerf", "append_to_nerf", "append_smpl_params",
-                        "original_nerf")
+                        "original_nerf", "dummy_dynamic", "image_wise_dynamic",
+                        "append_vertex_locations_to_nerf")
 
 
 @dataclasses.dataclass

@@ -1,13 +1,26 @@
-"""Rendering pipelines (counterpart of smpl_nerf_tpu/pipelines.py): nerf, smpl_nerf
-and the two append families (append_to_nerf, append_smpl_params).
+"""Rendering pipelines (counterpart of smpl_nerf_tpu/pipelines.py): nerf, smpl_nerf,
+the two append families (append_to_nerf, append_smpl_params) and the three
+SMPL-driven families (dummy_dynamic, image_wise_dynamic,
+append_vertex_locations_to_nerf).
 
 A pipeline is ``pipeline(batch, generator=None, train=False) -> outputs dict``
 over nn.Modules that hold their own weights; its `passes` (`FamilyPasses`)
 run the family's coarse and fine passes on any rays, which the culled
 renderers of render/fast.py call on the rays they select. Batch layout (tensors on one
 device): ray_translation [R,3], ray_direction [R,3] (+ human_pose [R,69] for
-the pose-conditioned families). The append families hand the (encoded) pose,
-two joints or all 69, to both nets as a per-ray conditioning prefix.
+the pose-conditioned families, + image_indices [R] for the SMPL-driven ones).
+The append families hand the (encoded) pose, two joints or all 69, to both
+nets as a per-ray conditioning prefix.
+
+The SMPL-driven families look each ray's image up in the estimator's pose
+table (a buffer of `smpl_estimator`; the image-wise estimator's one pose for
+every ray) and run SMPL LBS on those poses inside the step
+(`FamilyPasses.goal_verts_table`); with --images_per_batch K only on the
+batch's (at most K) unique images. dummy_dynamic and image_wise_dynamic warp
+every coarse sample by vertex attention (ops/vertex_attention.py) toward
+the canonical mesh, and have no fine pass; append_vertex_locations_to_nerf
+embeds the goal mesh's vertex cloud once per image (`VertexEmbedder`) and
+hands it to both nets as a 64-wide prefix.
 
 The MLP runner owns the encoding step:
   * use_fused_mlp=0: PositionalEncoder + the RenderRayNet module,
@@ -19,7 +32,7 @@ The MLP runner owns the encoding step:
   * use_fused_mlp=-1 (auto): as JAX's auto picks on its accelerator, mode 2
     on CUDA for each net the v2 kernels take (prefix-free, bf16, W <= 256),
     else mode 0; always mode 0 on the CPU.
-Every other model_type is not ported yet.
+The smpl, warp, vertex_sphere and smpl_estimator families are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,11 +44,17 @@ import torch
 from smpl_nerf_tpu_torch.core.encoding import PositionalEncoder
 from smpl_nerf_tpu_torch.core.integrate import raw2outputs
 from smpl_nerf_tpu_torch.core.sampling import coarse_sampling, fine_sampling
+from smpl_nerf_tpu_torch.models import smpl as smpl_mod
 from smpl_nerf_tpu_torch.ops import fused_mlp as fused_mod
 from smpl_nerf_tpu_torch.ops import fused_mlp_v2 as fused_v2
+from smpl_nerf_tpu_torch.ops.vertex_attention import vertex_attention_warp
 
+# the families that run SMPL LBS on the batch's images inside the step
+DYNAMIC_FAMILIES = ("dummy_dynamic", "image_wise_dynamic", "append_vertex_locations_to_nerf")
+# their pipeline has a coarse pass only, whatever --run_fine says
+COARSE_ONLY_FAMILIES = ("dummy_dynamic", "image_wise_dynamic")
 PORTED_MODEL_TYPES = ("nerf", "original_nerf", "smpl_nerf", "append_to_nerf",
-                      "append_smpl_params")
+                      "append_smpl_params") + DYNAMIC_FAMILIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +72,11 @@ class RenderConfig:
     human_joints: tuple = (41, 38)
     use_pallas: bool = False
     use_fused_mlp: int = 0  # 0 off, 1 fused MLP, 2 fused MLP + in-kernel encoding
+    warp_radius: float = 0.01
+    warp_temperature: float = 10000.0
+    use_gmm_loss: bool = False
+    gmm_std: float = 0.07
+    images_per_batch: int = 0
 
     @classmethod
     def from_args(cls, args) -> "RenderConfig":
@@ -68,7 +92,17 @@ class RenderConfig:
             human_joints=tuple(int(j) for j in args.human_joints),
             use_pallas=bool(int(getattr(args, "use_pallas", 0))),
             use_fused_mlp=int(getattr(args, "use_fused_mlp", 0) or 0),
+            warp_radius=float(args.warp_radius),
+            warp_temperature=float(args.warp_temperature),
+            use_gmm_loss=bool(int(args.use_gmm_loss)),
+            gmm_std=float(args.gmm_std),
+            images_per_batch=int(getattr(args, "images_per_batch", 0) or 0),
         )
+
+    @property
+    def has_fine(self) -> bool:
+        """Whether the pipeline runs a fine pass."""
+        return self.run_fine and self.model_type not in COARSE_ONLY_FAMILIES
 
 
 def build_encoders(args) -> Dict[str, PositionalEncoder]:
@@ -81,6 +115,26 @@ def build_encoders(args) -> Dict[str, PositionalEncoder]:
         "human_pose": PositionalEncoder(int(args.number_frequencies_pose),
                                         bool(int(args.use_identity_pose))),
     }
+
+
+def get_pose_table(models) -> Optional[torch.Tensor]:
+    """The dummy estimator's per-image goal-pose table (a buffer), or None
+    (no estimator, or the image-wise one). The dynamic pipeline's lookup and
+    the solver's table swap (training/solver.swap_pose_table) both read it here."""
+    return getattr(models.get("smpl_estimator"), "goal_poses", None)
+
+
+def unique_padded(x: torch.Tensor, size: int) -> torch.Tensor:
+    """`jnp.unique(x, size=size, fill_value=-1)`: the `size` smallest distinct
+    values of the 1-D x in ascending order, padded with -1. No host sync."""
+    s, _ = torch.sort(x)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    pos = torch.cumsum(first, 0) - 1
+    slot = torch.where(first & (pos < size), pos, torch.full_like(pos, size))
+    out = torch.full((size + 1,), -1, dtype=x.dtype, device=x.device)
+    out.scatter_(0, slot, s)          # repeats and overflow land in the dropped last slot
+    return out[:size]
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -185,29 +239,97 @@ class FamilyPasses:
     fine pass integrates with the unwarped per-ray direction, as the
     reference does (smpl_nerf_pipeline.py:95-98). The append families hand
     the (encoded) pose, two joints or all 69, to both nets as a prefix.
+    dummy_dynamic / image_wise_dynamic: vertex attention warps every sample
+    toward the canonical mesh, the net sees the warped samples and their
+    unit directions from the origin (per sample), coarse pass only.
+    append_vertex_locations_to_nerf: the embedded goal mesh is the prefix.
+
+    extras (the SMPL-driven families): 'smpl_model' and 'betas'.
     """
 
     def __init__(self, cfg: RenderConfig, models: Dict[str, torch.nn.Module],
-                 encoders: Dict[str, PositionalEncoder]):
+                 encoders: Dict[str, PositionalEncoder], extras: Optional[dict] = None):
         self.cfg = cfg
         self.models = models
         self.encoders = encoders
+        self.extras = extras or {}
         self.run = _make_net_runner(cfg, models, encoders)
+        self._betas, self._canonical = {}, {}
 
-    def pose(self, batch) -> Optional[torch.Tensor]:
-        """The per-ray pose the family conditions on: two joints for smpl_nerf
-        and append_to_nerf, all 69 for append_smpl_params, else None."""
+    def betas(self, device) -> torch.Tensor:
+        """The betas on `device`, copied there once (a copy per batch would
+        block the host until the device drains)."""
+        key = str(device)
+        if key not in self._betas:
+            self._betas[key] = torch.as_tensor(self.extras["betas"], dtype=torch.float32,
+                                               device=device).reshape(-1)
+        return self._betas[key]
+
+    def canonical_vertices(self, device) -> torch.Tensor:
+        """[V, 3] SMPL vertices at the zero pose (made once per device)."""
+        key = str(device)
+        if key not in self._canonical:
+            self._canonical[key] = smpl_mod.smpl_forward(
+                self.extras["smpl_model"], self.betas(device), torch.zeros(69, device=device))
+        return self._canonical[key]
+
+    def goal_verts_table(self, image_indices: torch.Tensor):
+        """(verts_table [K | N_img, V, 3], ray_pos [R]): LBS vertices of the
+        estimator's poses for the images the batch touches, and each ray's row.
+
+        With --images_per_batch K below the table's length, LBS runs on the
+        batch's unique images only (`unique_padded`: sorted, padded with -1,
+        which looks up image 0), and ray_pos is the first slot holding the
+        ray's image; a ray whose image is not among them maps to slot 0 (the
+        solver's guards keep such batches out). The image-wise estimator has
+        one pose, which every ray takes (where the JAX package's lookup is
+        out of range past image 0).
+        """
+        est = self.models["smpl_estimator"]
+        image_indices = image_indices.long()
+        table = get_pose_table(self.models)
+        K = self.cfg.images_per_batch
+        if table is None:
+            poses = est()
+            ray_pos = torch.zeros_like(image_indices)
+        elif K and K < table.shape[0]:
+            uniq = unique_padded(image_indices, K)
+            poses = est(uniq.clamp(min=0))
+            ray_pos = torch.argmax((image_indices[:, None] == uniq[None, :]).int(), 1)
+        else:
+            poses = table
+            ray_pos = image_indices
+        device = image_indices.device
+        verts = smpl_mod.smpl_forward(self.extras["smpl_model"], self.betas(device), poses)
+        return verts, ray_pos
+
+    def pose(self, batch):
+        """The per-ray conditioning of the family: two joints for smpl_nerf
+        and append_to_nerf, all 69 for append_smpl_params, the vertex
+        embedding [R, 64] for append_vertex_locations_to_nerf, each ray's
+        (goal vertices, canonical - goal) [R, V, 3] pair for dummy_dynamic and
+        image_wise_dynamic, else None."""
         mt = self.cfg.model_type
         if mt == "append_smpl_params":
             return batch["human_pose"]
         if mt in ("smpl_nerf", "append_to_nerf"):
             return two_joint_pose(self.cfg, batch)
+        if mt in DYNAMIC_FAMILIES:
+            verts, ray_pos = self.goal_verts_table(batch["image_indices"])
+            if mt == "append_vertex_locations_to_nerf":
+                # embedded once per image of the table, then gathered per ray
+                return self.models["vertex_embedder"](verts.reshape(verts.shape[0], -1))[ray_pos]
+            warps = self.canonical_vertices(verts.device)[None] - verts
+            return verts[ray_pos], warps[ray_pos]
         return None
 
     def prefix(self, pose: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """The append families' conditioning prefix of `pose` rows, else None."""
-        if pose is None or self.cfg.model_type == "smpl_nerf":
+        mt = self.cfg.model_type
+        if pose is None or mt == "smpl_nerf" or mt in COARSE_ONLY_FAMILIES:
             return None
+        if mt == "append_vertex_locations_to_nerf":
+            return pose
         return self.encoders["human_pose"].encode(pose) if self.cfg.human_pose_encoding else pose
 
     def warp(self, samples: torch.Tensor, pose2: torch.Tensor) -> torch.Tensor:
@@ -218,6 +340,15 @@ class FamilyPasses:
 
     def _net_pass(self, key, origins, dirs, pose, samples, z_vals, noise, gen, fine):
         cfg = self.cfg
+        if cfg.model_type in COARSE_ONLY_FAMILIES:
+            goal_verts, warp_vecs = pose
+            warp = vertex_attention_warp(samples, goal_verts, warp_vecs, cfg.warp_radius,
+                                         cfg.warp_temperature)
+            warped = samples + warp
+            sample_dirs = warped - origins[:, None, :]
+            raw = self.run(key, warped, _normalize(sample_dirs))
+            out = raw2outputs(raw, z_vals, sample_dirs, noise, cfg.white_background, gen)
+            return out, {"warp": warp, "ray_samples": samples, "warped_samples": warped}
         if cfg.model_type == "smpl_nerf":
             warp = self.warp(samples, pose)
             warped = samples + warp
@@ -274,7 +405,7 @@ class Pipeline:
         pose = self.passes.pose(batch)
         out, z_vals, extras = self.passes.coarse(origins, dirs, pose, noise, gen)
         result = {"rgb_coarse": out.rgb, "densities": out.density, **extras}
-        if not self.cfg.run_fine:
+        if not self.cfg.has_fine:
             result["rgb_fine"] = out.rgb
             return result
         out_f, extras_f = self.passes.fine(origins, dirs, pose, z_vals, out.weights, noise, gen)
@@ -283,8 +414,11 @@ class Pipeline:
 
 
 def build_pipeline(cfg: RenderConfig, models: Dict[str, torch.nn.Module],
-                   encoders: Dict[str, PositionalEncoder]) -> Pipeline:
-    """The pipeline for cfg.model_type (one of PORTED_MODEL_TYPES)."""
+                   encoders: Dict[str, PositionalEncoder],
+                   extras: Optional[dict] = None) -> Pipeline:
+    """The pipeline for cfg.model_type (one of PORTED_MODEL_TYPES). extras:
+    the per-dataset constants of the SMPL-driven families ('smpl_model',
+    'betas'; training.factory.dataset_extras)."""
     if cfg.model_type not in PORTED_MODEL_TYPES:
         raise _not_ported(f"model_type {cfg.model_type!r}")
-    return Pipeline(FamilyPasses(cfg, models, encoders))
+    return Pipeline(FamilyPasses(cfg, models, encoders, extras))

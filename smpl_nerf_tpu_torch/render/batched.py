@@ -4,6 +4,9 @@ smpl_nerf_tpu/training/solver.py:Solver.render_rays_batched).
 Rays are cut into chunks of `batch_size` (`batch_bounds`); the last chunk is
 padded with its LAST ray (`padded_rows`), and each ray's `human_pose` is
 gathered from the per-image pose table through its image index. The
+SMPL-driven families look their poses up in the table of the split being
+rendered (`solver.swap_pose_table`), and with --images_per_batch no batch
+may span more images than that (`solver.check_batch_images`). The
 occupancy renderer's auto budget (`cli/inference._auto_cap_fraction`)
 replays the same batches through the same two functions. A culled renderer
 (`render/fast.py`) takes the pipeline's place through `render_fn`, or
@@ -23,6 +26,7 @@ from smpl_nerf_tpu_torch.data.datasets import RayData
 from smpl_nerf_tpu_torch.pipelines import Pipeline, RenderConfig, build_pipeline
 from smpl_nerf_tpu_torch.training import checkpoints
 from smpl_nerf_tpu_torch.training.factory import build_models_and_params
+from smpl_nerf_tpu_torch.training.solver import check_batch_images, swap_pose_table
 
 
 def image_spans(num_rays: int, num_images: int, per_image: bool) -> List[tuple]:
@@ -64,32 +68,40 @@ def render_rays_batched(pipeline: Pipeline, data: RayData, batch_size: int,
     arrays = {"ray_translation": torch.as_tensor(data.origins, dtype=torch.float32,
                                                  device=device),
               "ray_direction": torch.as_tensor(data.directions, dtype=torch.float32,
+                                               device=device),
+              "image_indices": torch.as_tensor(data.image_indices, dtype=torch.long,
                                                device=device)}
-    image_indices = torch.as_tensor(data.image_indices, dtype=torch.long, device=device)
     pose_table = (torch.as_tensor(data.human_poses, dtype=torch.float32, device=device)
                   if data.human_poses is not None else None)
     out = torch.empty((data.num_rays, 3), dtype=torch.float32, device=device)
     fn, current = render_fn, None
-    for image, lo, hi in batch_bounds(data.num_rays, data.num_images, batch_size,
-                                      render_fn_per_image is not None):
-        if image is not None and image != current:
-            # the factory is called lazily per image: one baked grid at a time
-            fn, current = render_fn_per_image(image), image
-        idx = padded_rows(lo, hi, batch_size, device)
-        batch = {k: v[idx] for k, v in arrays.items()}
-        if pose_table is not None:
-            batch["human_pose"] = pose_table[image_indices[idx]]
-        rgb = fn(batch) if fn is not None else pipeline(batch)["rgb_fine"]
-        out[lo:hi] = rgb[:hi - lo]
+    cfg = getattr(pipeline, "cfg", None)        # any batch -> outputs callable renders
+    with swap_pose_table(getattr(pipeline, "models", {}), data.human_poses):
+        for image, lo, hi in batch_bounds(data.num_rays, data.num_images, batch_size,
+                                          render_fn_per_image is not None):
+            if image is not None and image != current:
+                # the factory is called lazily per image: one baked grid at a time
+                fn, current = render_fn_per_image(image), image
+            if cfg is not None and cfg.images_per_batch:
+                check_batch_images(cfg, padded_rows(lo, hi, batch_size).numpy(),
+                                   data.image_indices)
+            idx = padded_rows(lo, hi, batch_size, device)
+            batch = {k: v[idx] for k, v in arrays.items()}
+            if pose_table is not None:
+                batch["human_pose"] = pose_table[batch["image_indices"]]
+            rgb = fn(batch) if fn is not None else pipeline(batch)["rgb_fine"]
+            out[lo:hi] = rgb[:hi - lo]
     return out.cpu().numpy()
 
 
-def build_from_run(run_dir: str, args, device: torch.device) -> Pipeline:
-    """The run's pipeline with its weights loaded from model_*.pt."""
-    models, encoders = build_models_and_params(args, device=device)
+def build_from_run(run_dir: str, args, device: torch.device,
+                   extras: Optional[dict] = None) -> Pipeline:
+    """The run's pipeline with its weights loaded from model_*.pt (extras:
+    `factory.dataset_extras`, for the SMPL-driven families)."""
+    models, encoders = build_models_and_params(args, device=device, extras=extras)
     state_dicts = checkpoints.load_run(run_dir)
     for name, model in models.items():
         if name not in state_dicts:
-            raise FileNotFoundError(f"{run_dir} has no {name}.pt")
+            raise FileNotFoundError(f"{run_dir} has no {checkpoints.weights_file(name)}")
         model.load_state_dict(state_dicts[name])
-    return build_pipeline(RenderConfig.from_args(args), models, encoders)
+    return build_pipeline(RenderConfig.from_args(args), models, encoders, extras)

@@ -19,7 +19,9 @@ per-ray pose prefix gathered with the ray). They run the pipeline's own
 coarse and fine passes (`pipeline.passes`, `pipelines.FamilyPasses`) on the
 rays they select, so their nets run on the same kernels as the full pipeline
 (B in mode 2, D in mode 1) and their fine samples on kernel A. A
-configuration without a fine pass renders through the full pipeline.
+configuration without a fine pass, and every family the JAX renderers do not
+cull (the SMPL-driven ones), renders through the full pipeline, as it does
+in the JAX package.
 
 The top K are taken by a stable descending sort, not `torch.topk`:
 `jax.lax.top_k` puts the lower index first among equal scores, and occupancy
@@ -36,6 +38,10 @@ import torch
 from smpl_nerf_tpu_torch.ops import occupancy
 from smpl_nerf_tpu_torch.pipelines import Pipeline
 
+# the families the culled renderers take; every other one renders in full
+CULLED_FAMILIES = ("nerf", "original_nerf", "smpl_nerf", "append_to_nerf",
+                   "append_smpl_params")
+
 
 def top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k largest scores, the lower index first among
@@ -46,6 +52,10 @@ def top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _budget(R: int, cap_fraction: float) -> int:
     return max(1, int(R * cap_fraction))
+
+
+def _culls(pipeline: Pipeline) -> bool:
+    return pipeline.cfg.model_type in CULLED_FAMILIES and pipeline.cfg.run_fine
 
 
 def _full_pipeline_renderer(pipeline: Pipeline):
@@ -61,7 +71,7 @@ def _full_pipeline_renderer(pipeline: Pipeline):
 def make_fast_renderer(pipeline: Pipeline, cap_fraction: float = 0.25):
     """render(batch) -> rgb [R, 3]: coarse pass everywhere, fine pass on the K
     rays of largest coarse opacity."""
-    if not pipeline.cfg.run_fine:
+    if not _culls(pipeline):
         return _full_pipeline_renderer(pipeline)
     passes = pipeline.passes
 
@@ -102,7 +112,7 @@ def make_occupancy_renderer(pipeline: Pipeline, cap_fraction: float = 0.25,
     aabb = occupancy.DEFAULT_AABB if aabb is None else aabb
     if n_probe is None:
         n_probe = occupancy.required_probes(aabb, grid_resolution, cfg.near, cfg.far)
-    if not cfg.run_fine:
+    if not _culls(pipeline):
         return _full_pipeline_renderer(pipeline)
     if not cfg.white_background and warn_background:
         warnings.warn(

@@ -5,14 +5,18 @@ A run directory holds the fully resolved `config.txt`, the dataset's
 order that serving reads back), and one reference-layout torch state_dict per
 model: `model_coarse.pt`, `model_fine.pt`,
 `model_warp_field.pt` — exactly what the JAX package's
-`checkpoints.export_torch_run` writes next to its msgpack weights. A training
+`checkpoints.export_torch_run` writes next to its msgpack weights — and, for
+the SMPL-driven families, `model_smpl_estimator.pt` (the pose table or the
+two arm angles) and `model_vertex_embedder.pt`. A training
 run also keeps `train_state.pt`, the port's own resume state (optimizer
 moments, EMA shadow, raw weights, epoch, best validation loss).
 
 `params_from_jax` carries weights over from a JAX params tree of numpy arrays:
 flax Dense `kernel [in, out]` becomes torch `weight [out, in]`, and the flax
 names `positional_net_{i}` / `directional_net_0` become the reference's
-`positional_net.{i}` / `directional_net.0`.
+`positional_net.{i}` / `directional_net.0`; a leaf that is no Dense layer
+(`arm_angle_l`, `arm_angle_r`) and the `constants` collection (`goal_poses`,
+a buffer in the port) keep their names.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 
 from smpl_nerf_tpu_torch import config as config_mod
 
-MODEL_NAMES = ("model_coarse", "model_fine", "model_warp_field")
+MODEL_NAMES = ("model_coarse", "model_fine", "model_warp_field", "smpl_estimator",
+               "vertex_embedder")
 
 
 def _torch_layer_name(flax_name: str) -> str:
@@ -36,17 +41,28 @@ def _torch_layer_name(flax_name: str) -> str:
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{"model_coarse": {"params": {layer: {"kernel", "bias"}}}, ...} -> state dicts."""
+    """{"model_coarse": {"params": {layer: {"kernel", "bias"}}}, "smpl_estimator":
+    {"constants": {"goal_poses": ...}}, ...} -> state dicts."""
     state_dicts = {}
-    for model_name, params in tree.items():
-        layers = params.get("params", params)
+    for model_name, variables in tree.items():
+        collections = ([variables[c] for c in ("params", "constants") if c in variables]
+                       if "params" in variables or "constants" in variables else [variables])
         sd = {}
-        for layer, leaves in layers.items():
-            name = _torch_layer_name(layer)
-            sd[f"{name}.weight"] = torch.tensor(np.asarray(leaves["kernel"], np.float32).T)
-            sd[f"{name}.bias"] = torch.tensor(np.asarray(leaves["bias"], np.float32))
+        for layers in collections:
+            for layer, leaves in layers.items():
+                if not isinstance(leaves, Mapping):          # a bare leaf, kept by name
+                    sd[layer] = torch.tensor(np.asarray(leaves, np.float32))
+                    continue
+                name = _torch_layer_name(layer)
+                sd[f"{name}.weight"] = torch.tensor(np.asarray(leaves["kernel"], np.float32).T)
+                sd[f"{name}.bias"] = torch.tensor(np.asarray(leaves["bias"], np.float32))
         state_dicts[model_name] = sd
     return state_dicts
+
+
+def weights_file(name: str) -> str:
+    """model_coarse -> model_coarse.pt; smpl_estimator -> model_smpl_estimator.pt."""
+    return f"{name if name.startswith('model_') else 'model_' + name}.pt"
 
 
 def save_run(run_dir: str, state_dicts: Mapping[str, Mapping[str, torch.Tensor]],
@@ -58,7 +74,7 @@ def save_run(run_dir: str, state_dicts: Mapping[str, Mapping[str, torch.Tensor]]
     os.makedirs(run_dir, exist_ok=True)
     for name, sd in state_dicts.items():
         torch.save({k: v.detach().cpu() for k, v in sd.items()},
-                   os.path.join(run_dir, f"{name}.pt"))
+                   os.path.join(run_dir, weights_file(name)))
     if parser is not None and args is not None:
         parser.write_config_file(args, [os.path.join(run_dir, "config.txt")])
     ds_dir = dataset_dir or getattr(args, "dataset_dir", None)
@@ -80,7 +96,7 @@ def load_run(run_dir: str) -> Dict[str, Dict[str, torch.Tensor]]:
     """{model name: state_dict} for each model_*.pt present in run_dir."""
     state_dicts = {}
     for name in MODEL_NAMES:
-        path = os.path.join(run_dir, f"{name}.pt")
+        path = os.path.join(run_dir, weights_file(name))
         if os.path.exists(path):
             state_dicts[name] = torch.load(path, map_location="cpu", weights_only=True)
     if "model_coarse" not in state_dicts:

@@ -1,19 +1,52 @@
 """Model factory (counterpart of smpl_nerf_tpu/training/factory.py:build_models_and_params).
 
-The nerf / smpl_nerf / append_to_nerf / append_smpl_params subset: model_type ->
-nn.Modules with weights drawn from a seeded torch.Generator (flax's Dense init: lecun-normal kernels, zero
-biases). Every other family, SIREN nets and grid encoders are not ported yet.
+model_type -> nn.Modules with weights drawn from a seeded torch.Generator
+(flax's Dense init: lecun-normal kernels, zero biases), for the nerf,
+smpl_nerf and append families and the three SMPL-driven families
+(dummy_dynamic, image_wise_dynamic, append_vertex_locations_to_nerf), which
+also get their estimator and, for append_vertex_locations_to_nerf, the
+vertex embedder. `smpl_model_for` and `dataset_extras` give those families
+the SMPL model and the per-dataset constants. SIREN nets, grid encoders and
+the CNN estimator are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn as nn
 
 from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.core.encoding import PositionalEncoder
 from smpl_nerf_tpu_torch.models import RenderRayNet, WarpFieldNet
-from smpl_nerf_tpu_torch.pipelines import PORTED_MODEL_TYPES, _not_ported, build_encoders
+from smpl_nerf_tpu_torch.models import smpl as smpl_mod
+from smpl_nerf_tpu_torch.models.dummy_estimators import (DummyImageWiseEstimator,
+                                                          DummySmplEstimatorModel)
+from smpl_nerf_tpu_torch.models.render_ray_net import _linear, init_linear_
+from smpl_nerf_tpu_torch.pipelines import (DYNAMIC_FAMILIES, PORTED_MODEL_TYPES, _not_ported,
+                                           build_encoders)
+
+VERTEX_EMBEDDING_DIM = 64
+
+
+class VertexEmbedder(nn.Module):
+    """Embeds the flattened goal-mesh vertex cloud [V*3] into a 64-wide
+    conditioning prefix: Linear + ReLU (`embed_0`), Linear + ReLU
+    (`embed_out`), in float32."""
+
+    def __init__(self, in_dim: int, width: int = 256,
+                 embedding_dim: int = VERTEX_EMBEDDING_DIM, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embed_0 = _linear(in_dim, width, device)
+        self.embed_out = _linear(width, embedding_dim, device)
+        for layer in (self.embed_0, self.embed_out):
+            init_linear_(layer, generator)
+
+    def forward(self, verts_flat: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.embed_out(torch.relu(self.embed_0(verts_flat.float()))))
 
 
 def compute_dtype(args) -> torch.dtype:
@@ -21,11 +54,44 @@ def compute_dtype(args) -> torch.dtype:
             else torch.float32)
 
 
-def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE
+def smpl_model_for(args) -> smpl_mod.SmplModel:
+    """The SMPL model of a run, chosen as the JAX package's cli/train.py
+    chooses it: the pkl at `args.smpl_model_path` when that attribute names a
+    file (no training flag sets it), else the procedural human. Kept on
+    `args._smpl_model`, so a run builds it once."""
+    if getattr(args, "_smpl_model", None) is None:
+        path = getattr(args, "smpl_model_path", None)
+        args._smpl_model = (smpl_mod.load_smpl_pkl(path) if path and os.path.exists(path)
+                            else smpl_mod.procedural_human())
+    return args._smpl_model
+
+
+def dataset_extras(args, data) -> Dict[str, Any]:
+    """The per-dataset constants the factory and the pipeline read: betas, the
+    split's pose table (`goal_poses`) and, for the SMPL-driven families, the
+    SMPL model and its vertex count."""
+    extras: Dict[str, Any] = {
+        "betas": data.betas if data.betas is not None else np.zeros(10, np.float32)}
+    if data.human_poses is not None:
+        extras["goal_poses"] = data.human_poses
+    if args.model_type in DYNAMIC_FAMILIES:
+        extras["smpl_model"] = smpl_model_for(args)
+        extras["num_vertices"] = extras["smpl_model"].num_vertices
+    return extras
+
+
+def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE,
+                            extras: Optional[Dict[str, Any]] = None
                             ) -> Tuple[Dict[str, torch.nn.Module], Dict[str, PositionalEncoder]]:
     """Returns (models, encoders). The parameters live inside the modules,
-    which are in eval mode on `device`."""
+    which are in eval mode on `device`.
+
+    extras (the SMPL-driven families): 'goal_poses' [N_img, 69] for the dummy
+    estimator, 'num_vertices' for the vertex embedder, 'canonical_pose' for
+    the image-wise one.
+    """
     device = resolve_device(device)
+    extras = extras or {}
     if args.model_type not in PORTED_MODEL_TYPES:
         raise _not_ported(f"model_type {args.model_type!r}")
     if int(getattr(args, "siren", 0)):
@@ -40,9 +106,10 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE
     dtype = compute_dtype(args)
     generator = torch.Generator().manual_seed(int(seed))
     # the append families feed the (encoded) pose of two joints, or of all 69,
-    # to both nets as a conditioning prefix
+    # or the embedded vertex cloud, to both nets as a conditioning prefix
     additional = {"append_to_nerf": human_pose_dim * 2,
-                  "append_smpl_params": human_pose_dim * 69}.get(args.model_type, 0)
+                  "append_smpl_params": human_pose_dim * 69,
+                  "append_vertex_locations_to_nerf": VERTEX_EMBEDDING_DIM}.get(args.model_type, 0)
     common = dict(positions_dim=pos_dim, directions_dim=dir_dim,
                   additional_input_dim=additional,
                   use_directional_input=bool(int(args.use_directional_input)),
@@ -60,6 +127,15 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE
         models["model_warp_field"] = WarpFieldNet(
             width=int(args.netwidth_warp), positions_dim=warp_pos_dim,
             pose_dim=human_pose_dim * 2, compute_dtype=dtype, device=device,
+            generator=generator)
+    if args.model_type in ("dummy_dynamic", "append_vertex_locations_to_nerf"):
+        models["smpl_estimator"] = DummySmplEstimatorModel(extras["goal_poses"], device=device)
+    if args.model_type == "image_wise_dynamic":
+        models["smpl_estimator"] = DummyImageWiseEstimator(extras.get("canonical_pose"),
+                                                           device=device)
+    if args.model_type == "append_vertex_locations_to_nerf":
+        models["vertex_embedder"] = VertexEmbedder(
+            int(extras["num_vertices"]) * 3, width=int(args.netwidth), device=device,
             generator=generator)
     for m in models.values():
         m.eval()

@@ -6,7 +6,9 @@ foreground oversampling, masked validation over the whole val split, a
 per-epoch run-dir save with `val_curve.json`, the resume state and the
 best-validation snapshot.
 
-  * loss = MSE(rgb_coarse) + MSE(rgb_fine),
+  * loss = MSE(rgb_coarse) + MSE(rgb_fine) [+ the GMM density prior of
+    --use_gmm_loss: MSE(gmm.pdf(ray_samples), densities), the mixture's
+    means at the canonical SMPL vertices],
   * Adam / AdamW with the reference's groups: `net` on --lrate, `pose`
     (estimator parameters) on --lrate_pose, `frozen`; a group whose learning
     rate is 0 is left out of the optimizer, so it does not move at all,
@@ -14,9 +16,13 @@ best-validation snapshot.
 
 The dataset arrays go to the device once; a batch is an index gather. Where
 the JAX package compiles a step (and, with --scan_steps, several) into one
-program, this steps eagerly, one batch at a time. Not ported yet: the GMM
-density prior, the supervised `warp` loss, --images_per_batch, the pose table
-swap of the dynamic families, per-epoch re-render logging, tensor/mesh/
+program, this steps eagerly, one batch at a time. --images_per_batch K draws
+each batch from K images (the same numpy draws as the JAX solver, so the same
+indices for the same seed); the SMPL-driven families then run LBS on those K
+poses only, and validation and renders must keep every batch within K images
+(`check_batch_images`). Validation and renders of those families look poses up
+in the table of the split they evaluate (`swap_pose_table`). Not ported yet:
+the supervised `warp` loss, per-epoch re-render logging, tensor/mesh/
 multi-host parallelism and --check_nans.
 """
 from __future__ import annotations
@@ -30,7 +36,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from smpl_nerf_tpu_torch.pipelines import Pipeline
+from smpl_nerf_tpu_torch.core.gmm import GaussianMixture
+from smpl_nerf_tpu_torch.pipelines import DYNAMIC_FAMILIES, Pipeline, get_pose_table
 from smpl_nerf_tpu_torch.training import checkpoints
 
 
@@ -85,8 +92,50 @@ def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor) -> dict:
     return batch
 
 
-def make_loss_fn(pipeline: Pipeline) -> Callable:
-    """Loss = MSE(coarse) + MSE(fine)."""
+@contextlib.contextmanager
+def swap_pose_table(models, goal_poses):
+    """Inside the block the dummy estimator looks poses up in `goal_poses`.
+
+    The table holds the poses of the split the run was trained on, while
+    image_indices are local to each split: evaluating another split
+    (validation, inference scoring) must use that split's own poses. A no-op
+    without a table (image-wise estimator, other families) or without
+    goal_poses.
+    """
+    old = get_pose_table(models)
+    if goal_poses is None or old is None:
+        yield
+        return
+    est = models["smpl_estimator"]
+    est.goal_poses = torch.as_tensor(np.asarray(goal_poses, np.float32), device=old.device)
+    try:
+        yield
+    finally:
+        est.goal_poses = old
+
+
+def check_batch_images(cfg, idx: np.ndarray, image_indices: np.ndarray) -> None:
+    """Refuse an evaluation or render batch that spans more than
+    --images_per_batch images: the in-step lookup keeps K of them and would
+    give the other rays the wrong image's mesh without a word."""
+    K = int(cfg.images_per_batch or 0)
+    if not K or cfg.model_type not in DYNAMIC_FAMILIES:
+        return
+    if K >= int(image_indices.max()) + 1:
+        return
+    distinct = len(np.unique(image_indices[idx]))
+    if distinct > K:
+        raise ValueError(f"images_per_batch={K}: an evaluation batch spans {distinct} "
+                         "distinct images; lower batchsize_val / adjust val_rays or raise "
+                         "images_per_batch")
+
+
+def make_loss_fn(pipeline: Pipeline, canonical_vertices=None) -> Callable:
+    """Loss = MSE(coarse) + MSE(fine) [+ GMM density prior, with
+    --use_gmm_loss and canonical vertices]."""
+    gmm = None
+    if pipeline.cfg.use_gmm_loss and canonical_vertices is not None:
+        gmm = GaussianMixture(canonical_vertices, pipeline.cfg.gmm_std)
 
     def loss_fn(batch, generator=None, train: bool = True, mask=None):
         """mask: optional [R] 0/1 weights: the masked MEAN over real rays only
@@ -103,7 +152,13 @@ def make_loss_fn(pipeline: Pipeline) -> Callable:
         loss_c = _mean((out["rgb_coarse"] - rgb_truth) ** 2)
         loss_f = _mean((out["rgb_fine"] - rgb_truth) ** 2)
         loss = loss_c + loss_f
-        return loss, {"loss_coarse": loss_c, "loss_fine": loss_f, "loss": loss}
+        aux = {"loss_coarse": loss_c, "loss_fine": loss_f}
+        if gmm is not None and "ray_samples" in out:
+            gmm_loss = _mean((gmm.pdf(out["ray_samples"]) - out["densities"]) ** 2)
+            loss = loss + gmm_loss
+            aux["loss_gmm"] = gmm_loss
+        aux["loss"] = loss
+        return loss, aux
 
     return loss_fn
 
@@ -191,7 +246,7 @@ class Solver:
     """
 
     def __init__(self, pipeline: Pipeline, args, log_dir: Optional[str] = None,
-                 parser=None, frozen_nerf: bool = False):
+                 parser=None, frozen_nerf: bool = False, canonical_vertices=None):
         self.pipeline = pipeline
         self.models = pipeline.models
         self.args = args
@@ -200,7 +255,7 @@ class Solver:
         self.device = next(self.models["model_coarse"].parameters()).device
         for model in self.models.values():
             model.requires_grad_(True)
-        self.loss_fn = make_loss_fn(pipeline)
+        self.loss_fn = make_loss_fn(pipeline, canonical_vertices)
         self.optimizer = make_optimizer(self.models, args, args.model_type, frozen_nerf)
         self.global_step = 0
         self.history: Dict[str, list] = {"train_loss": [], "val_loss": []}
@@ -231,6 +286,14 @@ class Solver:
         """Weights used for validation / rendering / checkpoints: the EMA
         shadow when --param_ema is on, the raw training weights otherwise."""
         return self.ema_params if self.ema_params is not None else self.raw_state_dicts()
+
+    def run_state_dicts(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """What a run directory saves: `eval_params` with each module's
+        buffers (the dummy estimator's pose table)."""
+        if self.ema_params is None:
+            return self.raw_state_dicts()
+        return {name: {**dict(m.named_buffers()), **self.ema_params[name]}
+                for name, m in self.models.items()}
 
     @contextlib.contextmanager
     def _eval_weights(self):
@@ -322,6 +385,9 @@ class Solver:
         seed = int(getattr(args, "seed", 0))
         arrays = self.device_arrays(train_data, model_type)
         val_arrays = self.device_arrays(val_data, model_type)
+        # validation of the SMPL-driven families looks poses up in the VAL
+        # split's table (image_indices are split-local)
+        self._val_goal_poses = getattr(val_data, "human_poses", None)
         n = train_data.num_rays
         bs = int(args.batchsize)
         steps_per_epoch = int(getattr(args, "steps_per_epoch", 0)) or max(1, n // bs)
@@ -344,7 +410,37 @@ class Solver:
             else:
                 print(f"foreground sampling: {len(fg_idx)}/{n} fg rays, ratio {fg_ratio}")
 
+        # --images_per_batch: draw each batch from at most K images, so the
+        # in-step LBS runs on K poses; rays are stored contiguously per image
+        ipb = int(getattr(args, "images_per_batch", 0) or 0)
+        n_img = train_data.num_images
+        hw = n // max(1, n_img)
+        ipb = ipb if 0 < ipb < n_img else 0
+        bs_val = int(args.batchsize_val)
+        if ipb and model_type in DYNAMIC_FAMILIES and bs_val > max(1, ipb - 1) * hw:
+            # sequential validation batches must fit inside K images too
+            # (check_batch_images catches the strided cases per batch)
+            raise ValueError(
+                f"images_per_batch={ipb}: batchsize_val={bs_val} can span more than "
+                f"{ipb} images ({hw} rays/image); lower batchsize_val or raise "
+                "images_per_batch")
+        fg_mask = None
+        if ipb and fg_ratio > 0.0:
+            fg_mask = np.zeros(n, bool)
+            fg_mask[fg_idx] = True
+
         def draw_batch_indices():
+            # the JAX solver's numpy draws, in its order
+            if ipb:
+                imgs = np_rng.choice(n_img, ipb, replace=False)
+                cand = (imgs[:, None] * hw + np.arange(hw)[None, :]).reshape(-1)
+                if fg_ratio > 0.0:
+                    cfg_, cbg = cand[fg_mask[cand]], cand[~fg_mask[cand]]
+                    if len(cfg_) and len(cbg):
+                        n_fg = int(bs * fg_ratio)
+                        return np.concatenate([cfg_[np_rng.randint(0, len(cfg_), n_fg)],
+                                               cbg[np_rng.randint(0, len(cbg), bs - n_fg)]])
+                return cand[np_rng.randint(0, len(cand), bs)]
             n_fg = int(bs * fg_ratio)
             fg = fg_idx[np_rng.randint(0, len(fg_idx), n_fg)]
             bg = bg_idx[np_rng.randint(0, len(bg_idx), bs - n_fg)]
@@ -355,7 +451,7 @@ class Solver:
             epoch_losses = []
             t0 = time.time()
             for step in range(steps_per_epoch):
-                if fg_ratio > 0.0:
+                if fg_ratio > 0.0 or ipb:
                     idx = draw_batch_indices()
                 else:
                     lo = (step * bs) % max(1, n - bs + 1) if n >= bs else 0
@@ -385,7 +481,7 @@ class Solver:
             if callback is not None:
                 callback(self, epoch)
             if self.log_dir:
-                checkpoints.save_run(self.log_dir, self.eval_params, args, self.parser)
+                checkpoints.save_run(self.log_dir, self.run_state_dicts(), args, self.parser)
                 # machine-readable per-epoch curve (absolute epoch numbering
                 # survives --load_run resumes)
                 self.val_curve.append({
@@ -404,7 +500,7 @@ class Solver:
                 if val_loss <= min(self.history["val_loss"] + [self.best_val]):
                     self.best_val = val_loss
                     checkpoints.save_run(os.path.join(self.log_dir, "best"),
-                                         self.eval_params, args, self.parser)
+                                         self.run_state_dicts(), args, self.parser)
         return self.models
 
     def _validate(self, val_arrays, n_val: int, epoch: int = 0, full: bool = False) -> float:
@@ -426,13 +522,18 @@ class Solver:
         else:
             all_idx = np.arange(n_val, dtype=np.int64)
         bs = int(self.args.batchsize_val)
+        img_idx = (val_arrays["image_indices"].cpu().numpy()
+                   if self.pipeline.cfg.images_per_batch else None)
         total, weight = 0.0, 0.0
-        with self._eval_weights():
+        with self._eval_weights(), swap_pose_table(self.models,
+                                                   getattr(self, "_val_goal_poses", None)):
             for lo in range(0, len(all_idx), bs):
                 idx = all_idx[lo:lo + bs]
                 n_real = len(idx)
                 if n_real < bs:
                     idx = np.concatenate([idx, np.full(bs - n_real, idx[-1])])
+                if img_idx is not None:
+                    check_batch_images(self.pipeline.cfg, idx, img_idx)
                 mask = torch.zeros(bs, dtype=torch.float32, device=self.device)
                 mask[:n_real] = 1.0
                 aux = self.eval_step(self.gather(val_arrays, idx), mask)

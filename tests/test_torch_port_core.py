@@ -212,6 +212,9 @@ def test_port_entry_points_load_without_jax():
             "import smpl_nerf_tpu_torch.cli.render_path, smpl_nerf_tpu_torch.render.batched\n"
             "import smpl_nerf_tpu_torch.cli.inference, smpl_nerf_tpu_torch.render.fast\n"
             "import smpl_nerf_tpu_torch.ops.sample_pdf_cuda, smpl_nerf_tpu_torch.ops.fused_mlp_v2\n"
+            "import smpl_nerf_tpu_torch.cli.train, smpl_nerf_tpu_torch.training.image_wise\n"
+            "import smpl_nerf_tpu_torch.models.smpl, smpl_nerf_tpu_torch.core.gmm\n"
+            "import smpl_nerf_tpu_torch.ops.vertex_attention, smpl_nerf_tpu_torch.ops.raymesh\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'smpl_nerf_tpu')]\n"
             "assert not bad, bad\n")

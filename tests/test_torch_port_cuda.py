@@ -241,6 +241,11 @@ def test_smpl_nerf_kernel_path_on_cuda_matches_plain_versions_on_cpu(gen, cuda):
     (2, 160, 10, 12, 40, (0,), True, 20000),   # padded to 256; 157 tiles; 72 dir columns
     (4, 96, 4, 2, 7, (2,), True, 5000),        # padded to 128
     (8, 256, 10, 4, 621, (4,), True, 711 * 128),   # a culled fine pass: 711 rays of 64+64
+    # append_vertex_locations_to_nerf: a 64-wide vertex embedding, in_dim 148
+    # (a 124-column prefix+pos block: two A chunks, the second 60 wide)
+    (8, 256, 10, 4, 64, (4,), True, 1000),
+    (8, 256, 10, 4, 64, (4,), True, 129),
+    (8, 256, 10, 4, 64, (4,), True, 2048 * 64 + 17),
 ])
 def test_fused_v1_kernel_matches_plain(gen, cuda, n_layers, width, pos_f, dir_f, add, skips,
                                        use_dir, rows):
@@ -811,3 +816,86 @@ def test_finetune_on_cuda_resumes_from_its_checkpoint(gen, cuda, tmp_path, monke
     assert resumed_loss == pytest.approx(whole_loss, rel=1e-4)
     for a, b in zip(resumed.experts, whole.experts):
         assert float((a - b).abs().max()) <= 1e-5
+
+
+# ------------------------------------------------- the SMPL-driven families
+
+def _dynamic_setup(gen, model_type, *extra, device="cpu"):
+    from smpl_nerf_tpu_torch.models import smpl
+    args = config.config_parser().parse_args([
+        "--config=/dev/null", f"--model_type={model_type}", "--netdepth=4", "--netwidth=128",
+        "--skips=2", "--netdepth_fine=4", "--netwidth_fine=128", "--skips_fine=2",
+        "--number_coarse_samples=16", "--number_fine_samples=16", "--run_fine=1",
+        "--number_frequencies_postitional=6", "--number_frequencies_directional=3",
+        "--warp_radius=0.1", "--warp_temperature=100", "--sigma_noise_std=0",
+        "--white_background=1", "--compute_dtype=bfloat16", "--use_pallas=1",
+        "--lrate=1e-3", *extra])
+    human = smpl.procedural_human()
+    poses = (0.25 * gen.randn(3, 69)).astype(np.float32)
+    extras = {"smpl_model": human, "betas": np.zeros(10, np.float32), "num_images": 3,
+              "goal_poses": poses, "num_vertices": human.num_vertices}
+    models, encoders = factory.build_models_and_params(args, seed=3, device=device,
+                                                       extras=extras)
+    return args, build_pipeline(RenderConfig.from_args(args), models, encoders, extras), poses
+
+
+def _dynamic_batch(gen, poses, n):
+    from smpl_nerf_tpu_torch.models import smpl
+    verts = smpl.smpl_forward(smpl.procedural_human(), np.zeros(10),
+                              torch.from_numpy(poses)).numpy()
+    img = gen.randint(0, len(poses), n).astype(np.int32)
+    origins = np.tile(np.asarray([[0.0, 0.0, 2.4]], np.float32), (n, 1))
+    dirs = verts[img, gen.randint(0, verts.shape[1], n)] - origins
+    dirs = (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32)
+    return {"ray_translation": origins, "ray_direction": dirs, "image_indices": img,
+            "rgb": gen.uniform(0, 1, (n, 3)).astype(np.float32)}
+
+
+def test_dummy_dynamic_kernels_b_and_c_take_per_sample_directions(gen, cuda):
+    """Auto mode on the card runs the warped rows, whose directions differ per
+    sample, through B and, in a training step, C; against the plain versions
+    on the CPU: the render, the loss and every gradient."""
+    batch = _dynamic_batch(gen, _dynamic_setup(gen, "dummy_dynamic")[2], 300)
+    results = {}
+    for device in ("cpu", cuda):
+        args, pipe, _ = _dynamic_setup(np.random.RandomState(0), "dummy_dynamic",
+                                       "--use_fused_mlp=-1", device=device)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        b0, c0 = fused_mlp_v2.launches, fused_mlp_v2.launches_bwd
+        with torch.no_grad():
+            out = pipe(tb)
+        sol = solver.Solver(pipe, args)
+        sol.optimizer.zero_grad()
+        loss, _ = sol.loss_fn(tb, None, True)
+        loss.backward()
+        launched = (fused_mlp_v2.launches - b0, fused_mlp_v2.launches_bwd - c0)
+        assert launched == ((2, 1) if device == cuda else (0, 0))
+        assert float(out["warp"].abs().max()) > 1e-3                  # the warp bends rays
+        grads = [p.grad.float().cpu() for p in pipe.models["model_coarse"].parameters()]
+        results[str(device)] = (out["rgb_coarse"].float().cpu(), float(loss.detach()), grads)
+    (rgb_c, loss_c, g_c), (rgb_k, loss_k, g_k) = results["cpu"], results["cuda"]
+    err = (rgb_k - rgb_c).abs()
+    assert torch.isfinite(rgb_k).all() and err.max() < 5e-2 and err.mean() < 5e-3
+    assert abs(loss_k - loss_c) <= 2e-2 * loss_c
+    for a, b in zip(g_k, g_c):
+        assert float((a - b).norm()) <= BWD_DW_REL * float(b.norm()) + 1e-6
+
+
+def test_append_vertices_kernel_path_on_cuda_matches_plain_versions_on_cpu(gen, cuda):
+    """Kernels A and D (a 64-wide embedding prefix) on the card against the
+    plain versions on the CPU."""
+    batch = _dynamic_batch(gen, _dynamic_setup(gen, "append_vertex_locations_to_nerf")[2], 300)
+    outs = {}
+    for device in ("cpu", cuda):
+        _, pipe, _ = _dynamic_setup(np.random.RandomState(0), "append_vertex_locations_to_nerf",
+                                    "--use_fused_mlp=1", device=device)
+        a, d = sample_pdf_cuda.launches, fused_mlp.launches
+        with torch.no_grad():
+            out = pipe({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        launched = (sample_pdf_cuda.launches - a, fused_mlp.launches - d)
+        assert launched == ((1, 2) if device == cuda else (0, 0))
+        outs[str(device)] = {k: v.float().cpu().numpy() for k, v in out.items()}
+    for key in ("rgb_coarse", "rgb_fine"):
+        err = np.abs(outs["cuda"][key] - outs["cpu"][key])
+        assert np.isfinite(outs["cuda"][key]).all()
+        assert err.max() < 5e-2 and err.mean() < 5e-3, key

@@ -120,7 +120,10 @@ def _write_split(rng, directory, n=3, res=6, with_pose=True):
 
 @pytest.mark.parametrize("model_type,with_pose", [("nerf", False), ("smpl_nerf", True),
                                                   ("append_to_nerf", True),
-                                                  ("append_smpl_params", True)])
+                                                  ("append_smpl_params", True),
+                                                  ("dummy_dynamic", True),
+                                                  ("image_wise_dynamic", True),
+                                                  ("append_vertex_locations_to_nerf", True)])
 def test_load_dataset_and_gather_batch_match_jax(rng, tmp_path, model_type, with_pose):
     split = str(tmp_path / "train")
     _write_split(rng, split, with_pose=with_pose)
@@ -152,7 +155,7 @@ def test_load_dataset_and_gather_batch_match_jax(rng, tmp_path, model_type, with
 def test_loader_refuses_what_is_not_ported_and_a_miscounted_split(rng, tmp_path):
     split = str(tmp_path / "train")
     _write_split(rng, split)
-    for model_type in ("smpl", "vertex_sphere", "smpl_estimator"):
+    for model_type in ("smpl", "warp", "vertex_sphere", "smpl_estimator"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             datasets.load_dataset(split, model_type)
     cv2.imwrite(os.path.join(split, "stray.png"), _image(rng, 6, 6, 3))

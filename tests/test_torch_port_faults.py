@@ -4,7 +4,8 @@
 run directory as the JAX package's does (serving reads the frame order back
 from it), byte for byte, and writes none where the dataset has none. The
 training flags whose machinery is not ported raise, naming the flag, before
-any data is loaded; `--render_gif` (on by default) re-renders train + val into
+any data is loaded, as do the model types not ported yet (smpl, warp,
+vertex_sphere, smpl_estimator); `--render_gif` (on by default) re-renders train + val into
 <run_dir>/inference.gif and img_XXX.png, and nothing when it is 0. Sizes: a
 4x4 two-view dataset, one step of 2x16 nets.
 """
@@ -91,7 +92,7 @@ def test_train_saves_the_dataset_config_and_says_the_gif_step_is_skipped(
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("check_nans", "1"), ("images_per_batch", "2"), ("tensor_parallel", "1"),
+    ("check_nans", "1"), ("mesh_shape", "8"), ("tensor_parallel", "1"),
     ("mesh_shape", "4,2"), ("multihost", "1"), ("profile_dir", "trace")])
 def test_an_unported_flag_raises_before_any_data_is_loaded(tmp_path, monkeypatch, flag, value):
     def no_loading(*args, **kwargs):
@@ -106,9 +107,24 @@ def test_an_unported_flag_raises_before_any_data_is_loaded(tmp_path, monkeypatch
 
 def test_the_unported_flags_at_their_defaults_pass_the_guard():
     parser = port_config.config_parser()
-    args = parser.parse_args(["--config=/dev/null", "--check_nans=0", "--images_per_batch=0",
-                              "--tensor_parallel=0", "--mesh_shape=", "--multihost=0"])
+    args = parser.parse_args(["--config=/dev/null", "--check_nans=0", "--images_per_batch=2",
+                              "--use_gmm_loss=1", "--tensor_parallel=0", "--mesh_shape=",
+                              "--multihost=0"])
     train_cli._refuse_unported_flags(args, parser)
-    assert set(train_cli.UNPORTED_FLAGS) == {"check_nans", "images_per_batch",
-                                             "tensor_parallel", "mesh_shape", "multihost",
-                                             "profile_dir"}
+    assert set(train_cli.UNPORTED_FLAGS) == {"check_nans", "tensor_parallel", "mesh_shape",
+                                             "multihost", "profile_dir"}
+
+
+@pytest.mark.parametrize("model_type", ["smpl", "warp", "vertex_sphere", "smpl_estimator"])
+def test_the_unported_families_raise_naming_themselves(tmp_path, model_type):
+    """In training, before any data is loaded, and in setup_from_run_dir."""
+    from smpl_nerf_tpu_torch.cli import inference
+    with pytest.raises(NotImplementedError, match=f"{model_type!r} is not ported yet"):
+        train_cli.train(_train_argv(str(tmp_path / "no_such_dataset"),
+                                    f"--model_type={model_type}"),
+                        log_dir=str(tmp_path / "run"), device="cpu")
+    run_dir = str(tmp_path / "run_dir")
+    parser = port_config.config_parser()
+    checkpoints.save_run(run_dir, {}, parser.parse_args(["--config=/dev/null"]), parser)
+    with pytest.raises(NotImplementedError, match=f"{model_type!r} is not ported yet"):
+        inference.setup_from_run_dir(run_dir, model_type)
