@@ -86,7 +86,28 @@ unguarded, so that any failure exits non-zero:
      --images_per_batch 2 (every gathered batch within 2 images); then
      image_wise_dynamic for one epoch from the dummy_dynamic run's coarse
      net, frozen: the pose error printed and the arm angles moved;
- 10. distillation: `cli.distill.main` on that dataset's val split (2 views of
+ 10. the generator and the families on its data: `create_dataset_torch`
+     (cli.dataset) on the card writes an smpl set and an smpl_nerf set of 10
+     views at 64x64 (a circle, ratio 0.8, both arms swept over the views: the
+     same cameras and poses) and 2 views of smpl_nerf at 128x128, with seconds
+     per image; one smpl image again on the CPU, held to the CPU test's bounds.
+     smpl and warp train SMPL_STEPS full-width configs/config.txt steps on the
+     smpl set (no kernel: smpl runs the coarse net's plain forward, warp only
+     the warp field, whose nets must keep their seeded weights), the first
+     step against the port's CPU run on the same seed and batch, ms per step.
+     vertex_sphere on the smpl_nerf set, precomputed and with
+     --vertex_sphere_in_step=1 --images_per_batch 2: the loader's seconds on
+     the card, the kernel path (auto: B and C on the coarse net) and the plain
+     path from one seed (launch counts, first losses), inference_torch on the
+     val split, the val views through the kernel path and through
+     --use_fused_mlp=1 (kernel D at the prefix-free width 90) against the
+     plain path on the same weights (coarse sigma bias raised by
+     CULL_FINE_SIGMA_BIAS), ms per step and per 128x128 view in turns, one
+     profiled step and render, and in-step the warp recompute's device ms.
+     smpl_estimator trains EST_EPOCHS epochs on the smpl_nerf set's images
+     (finite, falling loss; the run dir reloads with its BatchNorm
+     statistics), seconds per epoch;
+ 11. distillation: `cli.distill.main` on that dataset's val split (2 views of
      64x64, one 4096-ray chunk each) with a seeded full-width `nerf` teacher
      (arm_angles.txt widths, --use_fused_mlp=2, so the teacher runs through
      kernel B): grid 20 (8000 experts), hidden 32, 192 samples, chunk 4096,
@@ -107,12 +128,12 @@ unguarded, so that any failure exits non-zero:
      kernel-path view; and kernel E against its plain version, timed, on the
      sorted-tile plan of view 0's chunk through the compact field (bf16, the
      serving type, and float32): the kernels line's numbers for E;
- 11. roofline: `cli.mlp_roofline.main` part `chain` (W=256/512/1024, depth 8,
+ 12. roofline: `cli.mlp_roofline.main` part `chain` (W=256/512/1024, depth 8,
      131,072 rows: launches F; the kernel chain within one bf16 step of the
      largest output of the library chain, and not dead) and part
      `fusedmlp` at W=256 (B, C and D);
- 12. one JSON line of per-kernel results (with each path's launches);
- 13. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+ 13. one JSON line of per-kernel results (with each path's launches);
+ 14. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Tolerances, each with its reason:
   * sample_pdf (kernel A): the kernel's warp-shuffle cumsum adds in another
@@ -183,7 +204,16 @@ Tolerances, each with its reason:
   * kernel path vs plain path training losses: the same two roundings, in
     the forward and in the gradients, from the same weights, batches and
     jitter: each of the first 8 steps' losses within 10 % of the other path's
-    (the SMPL-driven families: the first step's).
+    (the SMPL-driven families and vertex_sphere: the first step's).
+  * smpl and warp, the card's first-step loss against the CPU's: the same
+    plain bf16 nets (flax's rounding) from the same weights and batch; cuBLAS
+    and the CPU sum each bf16 product in float32 in their own orders, which
+    can flip a bf16 rounding (2^-8 relative) of an activation: 1e-2 relative.
+  * the generated smpl image, card against CPU: the CPU test's bounds
+    (tests/test_torch_port_generate.py), on the pixels whose closest face
+    is the same on both devices (a ray through a triangle edge can take the
+    neighbouring face): hit masks on >= 99.5 % of the pixels, the face on
+    >= 98 %, colour within 1 level, depth and warp within 1e-4.
 """
 from __future__ import annotations
 
@@ -244,6 +274,10 @@ DISTILL_STEPS, FINETUNE_STEPS, FINETUNE2_STEPS, DISTILL_REPS = 300, 100, 40, 3
 OCCUPIED_SHARE = (0.05, 0.35)   # bisection target; the contract is 2-50 %
 ROOFLINE_REPS, ROOFLINE_DEPTH = 5, 8
 SMPL_STEPS, SMPL_IPB = 4, 2     # steps per SMPL-driven training run; its --images_per_batch
+GEN_VIEWS, GEN_RES, GEN_VAL, VS_VIEW_RES = 10, 64, 2, 128    # generated sets; vertex_sphere views
+SAMPLE_LOSS_REL = 1e-2          # smpl / warp first-step loss, card against the CPU (bf16 nets)
+GEN_HIT_SHARE, GEN_FACE_SHARE, GEN_T_ATOL = 0.995, 0.98, 1e-4   # the CPU test's bounds
+EST_EPOCHS, EST_BATCH = 3, 4
 
 
 def fail(msg: str) -> None:
@@ -1615,6 +1649,335 @@ def phase_image_wise(tmp: str, dataset_dir: str, coarse_run: str) -> dict:
     return counts
 
 
+def phase_generate(tmp: str) -> tuple:
+    """create_dataset_torch (cli.dataset.main) on the card: an smpl set and an
+    smpl_nerf set of GEN_VIEWS views at GEN_RES^2 (a circle, ratio 0.8, both
+    arms swept from -90 to 90 degrees over the views: the same cameras and
+    poses), and 2 val views of smpl_nerf at VS_VIEW_RES^2 for the
+    vertex_sphere view timings; seconds per image. Then the first train image
+    of the smpl set again on the CPU (`render/raytrace`), held to the CPU
+    test's bounds on the pixels whose closest face is the same on both
+    devices. Returns ({set: directory}, launch counts)."""
+    from smpl_nerf_tpu_torch.cli import dataset as dataset_cli
+    from smpl_nerf_tpu_torch.data import png
+    from smpl_nerf_tpu_torch.models import smpl as smpl_mod
+    from smpl_nerf_tpu_torch.ops import raymesh
+    from smpl_nerf_tpu_torch.render import raytrace
+
+    dirs = {}
+    zero_launch_counts()
+    for key, kind, res, views, ratio in (("smpl", "smpl", GEN_RES, GEN_VIEWS, 0.8),
+                                         ("smpl_nerf", "smpl_nerf", GEN_RES, GEN_VIEWS, 0.8),
+                                         ("view", "smpl_nerf", VS_VIEW_RES, 2, 0.0)):
+        dirs[key] = os.path.join(tmp, f"gen_{key}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dataset_cli.main([f"--save_dir={dirs[key]}", f"--dataset_type={kind}",
+                          f"--resolution={res}", "--camera_path=circle",
+                          f"--number_steps={views}", f"--human_number_steps={views}",
+                          f"--train_val_ratio={ratio}", "--device", DEVICE])
+        seconds = time.perf_counter() - t0
+        print(f"generate: create_dataset_torch --dataset_type={kind} {views} views "
+              f"{res}x{res} on the card: {seconds:.3f} s, {seconds / views:.4f} s per image "
+              "(host clock: LBS, ray tracing, PNG and .npy writing)")
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()), f"generate: a kernel launched {counts}")
+
+    train_dir = os.path.join(dirs["smpl"], "train")
+    with open(os.path.join(train_dir, "transforms.json")) as fh:
+        meta = json.load(fh)
+    name = sorted(meta["image_transform_map"])[0]
+    stem = name[len("img_"):-len(".png")]
+    cam = np.asarray(meta["image_transform_map"][name], np.float32)
+    pose = np.asarray(meta["image_pose_map"][name], np.float32)
+    fov = meta["camera_angle_x"]
+    model = smpl_mod.procedural_human()
+    canonical = smpl_mod.smpl_forward(model, np.zeros(10), torch.zeros(69)).numpy()
+    verts = smpl_mod.smpl_forward(model, np.zeros(10), torch.from_numpy(pose)).numpy()
+    img = raytrace.render_scene(verts, model.faces, cam, GEN_RES, GEN_RES, fov,
+                                vertex_colors=model.vertex_colors, device="cpu")
+    warp, depth = raytrace.get_warp(canonical, verts, model.faces, cam, GEN_RES, GEN_RES, fov,
+                                    device="cpu")
+    card_img = png.read_png(os.path.join(train_dir, name))[..., ::-1]
+    card_warp = np.load(os.path.join(train_dir, f"warp_{stem}.npy"))
+    card_depth = np.load(os.path.join(train_dir, f"depth_{stem}.npy"))
+    hits = {}
+    for dev in ("cpu", DEVICE):
+        o, d = raytrace.pixel_rays(cam, GEN_RES, GEN_RES, fov, dev)
+        v = smpl_mod.smpl_forward(model, np.zeros(10), torch.from_numpy(pose).to(dev))
+        h = raymesh.intersect_rays(o, d, v, model.faces)
+        hits[dev] = (h.hit.cpu().numpy(), h.face_idx.cpu().numpy())
+    hit_same = hits["cpu"][0] == hits[DEVICE][0]
+    same = (hit_same & (hits["cpu"][1] == hits[DEVICE][1])).reshape(GEN_RES, GEN_RES)
+    colour = np.abs(img.astype(int) - card_img.astype(int)).max(-1)[same].max()
+    depth_err = np.abs(depth - card_depth)[same].max()
+    warp_err = np.abs(warp - card_warp)[same].max()
+    print(f"generate: {name} of the smpl set again on the CPU: hit masks agree on "
+          f"{hit_same.mean():.4%} (bound {GEN_HIT_SHARE:.1%}), the face on {same.mean():.4%} "
+          f"(bound {GEN_FACE_SHARE:.0%}); there colour max|diff| {colour} level(s) (bound 1), "
+          f"depth {depth_err:.3e}, warp {warp_err:.3e} (bound {GEN_T_ATOL})")
+    check(hit_same.mean() >= GEN_HIT_SHARE and same.mean() >= GEN_FACE_SHARE,
+          "generate: the card's and the CPU's hits disagree")
+    check(colour <= 1 and depth_err <= GEN_T_ATOL and warp_err <= GEN_T_ATOL,
+          "generate: the card's smpl image disagrees with the CPU's")
+    check(float(np.abs(card_warp).max()) > 1e-2, "generate: no pixel of the smpl image warps")
+    return dirs, counts
+
+
+def sample_run(tmp: str, dataset_dir: str, name: str, model_type: str, fused: int,
+               extra=(), steps: int = SMPL_STEPS, device=None):
+    """A full-width configs/config.txt run (8x256 nets, 64 coarse samples,
+    bf16, sigma noise 1) of a family on the loader's samples: one epoch of
+    `steps` steps of BATCH rays, then one validation pass."""
+    from smpl_nerf_tpu_torch.cli import train as train_cli
+
+    log_dir = os.path.join(tmp, name)
+    solver = train_cli.train(
+        [f"--config={APPEND_CONFIG}", f"--model_type={model_type}",
+         f"--dataset_dir={dataset_dir}", "--num_epochs=1", f"--steps_per_epoch={steps}",
+         f"--batchsize_val={BATCH}", "--seed=1", f"--use_fused_mlp={fused}", "--use_pallas=0",
+         *extra], log_dir=log_dir, device=device or DEVICE)
+    return solver, log_dir
+
+
+def phase_smpl_warp(tmp: str, dataset_dir: str) -> dict:
+    """smpl and warp on the generated smpl set: SMPL_STEPS steps on the card
+    (no kernel: smpl runs the coarse net's plain forward, as JAX's `.apply`,
+    warp only the warp field), the first step against the port's CPU run on
+    the same seed and batch, ms per step; warp leaves its nets where they
+    were. Returns {path: launch counts}."""
+    from smpl_nerf_tpu_torch.training import checkpoints, factory
+
+    paths = {}
+    for model_type in ("smpl", "warp"):
+        zero_launch_counts()
+        solver, run_dir = sample_run(tmp, dataset_dir, f"{model_type}_card", model_type, -1)
+        counts = launch_counts()
+        check_counts(f"{model_type} training", counts, {})
+        paths[f"{model_type}_train"] = counts
+        cpu, _ = sample_run(tmp, dataset_dir, f"{model_type}_cpu", model_type, -1, steps=1,
+                            device="cpu")
+        card_loss, cpu_loss = solver.history["step_loss"], cpu.history["step_loss"]
+        rel = abs(card_loss[0] - cpu_loss[0]) / cpu_loss[0]
+        ms = 1e3 * statistics.median(solver.step_seconds[1:])
+        print(f"{model_type}: cli.train configs/config.txt full width, {SMPL_STEPS} steps of "
+              f"{BATCH} rays on the card: losses " + " ".join(f"{v:.6f}" for v in card_loss)
+              + f"; first step {card_loss[0]:.6f} against the CPU's {cpu_loss[0]:.6f}: relative "
+              f"{rel:.3e} (bound {SAMPLE_LOSS_REL}); {ms:.2f} ms per step (host clock, "
+              f"synchronised, median without the first); launches {counts}")
+        check(bool(np.isfinite(card_loss).all())
+              and bool(np.isfinite(solver.history["val_loss"]).all()),
+              f"{model_type}: non-finite loss")
+        check(rel <= SAMPLE_LOSS_REL, f"{model_type}: the card's first loss is not the CPU's")
+        check(os.path.exists(os.path.join(run_dir, "model_coarse.pt")),
+              f"{model_type}: the run dir lacks model_coarse.pt")
+        if model_type == "warp":
+            # only the warp field trains: the nets keep their seeded weights
+            seeded, _ = factory.build_models_and_params(solver.args, seed=1, device="cpu")
+            saved = checkpoints.load_run(run_dir)
+            for key in ("model_coarse", "model_fine"):
+                check(all(torch.equal(v, saved[key][k])
+                          for k, v in seeded[key].state_dict().items()),
+                      f"warp: {key} moved, though it gets no gradient")
+            check(not all(torch.equal(v, saved["model_warp_field"][k]) for k, v in
+                          seeded["model_warp_field"].state_dict().items()),
+                  "warp: the warp field did not move")
+    return paths
+
+
+def vs_views(args, run_dir: str, data, use_fused_mlp: int) -> np.ndarray:
+    from smpl_nerf_tpu_torch.cli import inference
+
+    args.use_fused_mlp = use_fused_mlp
+    return inference.render_dataset(args, run_dir, data, batch_size=BATCH, device=DEVICE)
+
+
+def phase_vertex_sphere(tmp: str, dataset_dir: str, view_dir: str, what: str,
+                        extra: tuple) -> tuple:
+    """vertex_sphere on the generated smpl_nerf set, precomputed or in-step
+    (`extra`): the loader's seconds on the card; SMPL_STEPS steps through the
+    kernel path (auto: B forward, C backward on the coarse net) with launch
+    counts, the plain path (0) from the same seed, first losses within
+    LOSS_REL; inference_torch on the val split; the val views through both
+    paths on the same weights (the coarse sigma bias raised by
+    CULL_FINE_SIGMA_BIAS) and through --use_fused_mlp=1 (kernel D at the
+    prefix-free width) under the render bounds; ms per step and per
+    VS_VIEW_RES^2 view in turns; one profiled step and render; in-step, the
+    warp recompute's device ms. Returns ({path: launch counts},
+    {path: device ms by kernel})."""
+    from smpl_nerf_tpu_torch.cli import inference
+    from smpl_nerf_tpu_torch.data import datasets
+
+    val_dir = os.path.join(dataset_dir, "val")
+    val_batches = -(-GEN_VAL * GEN_RES * GEN_RES // BATCH)
+    paths, device_ms = {}, {}
+    zero_launch_counts()
+    solver, kernel_dir = sample_run(tmp, dataset_dir, f"{what}_kernel", "vertex_sphere", -1, extra)
+    counts = launch_counts()
+    print(f"{what}: cli.train vertex_sphere configs/config.txt full width, kernel path "
+          f"(--use_fused_mlp=-1 {' '.join(extra)}), {SMPL_STEPS} steps of {BATCH} rays + "
+          f"{val_batches} validation batches: launches {counts}")
+    check_counts(f"{what} training", counts, {"fused_mlp_v2_fwd": SMPL_STEPS + val_batches,
+                                              "fused_mlp_v2_bwd": SMPL_STEPS})
+    paths[f"{what}_train"] = counts
+    plain_solver, plain_dir = sample_run(tmp, dataset_dir, f"{what}_plain", "vertex_sphere", 0,
+                                         extra)
+    kernel_loss, plain_loss = solver.history["step_loss"], plain_solver.history["step_loss"]
+    print(f"{what}: loss per step, kernel path: " + " ".join(f"{v:.5f}" for v in kernel_loss))
+    print(f"{what}: loss per step, plain path:  " + " ".join(f"{v:.5f}" for v in plain_loss))
+    for path, losses, sol in (("kernel", kernel_loss, solver), ("plain", plain_loss, plain_solver)):
+        check(len(losses) == SMPL_STEPS and bool(np.isfinite(losses).all())
+              and bool(np.isfinite(sol.history["val_loss"]).all()),
+              f"{what}: non-finite loss on the {path} path")
+    rel = abs(kernel_loss[0] - plain_loss[0]) / plain_loss[0]
+    print(f"{what}: first-step loss kernel {kernel_loss[0]:.6f} vs plain {plain_loss[0]:.6f}: "
+          f"relative difference {rel:.3e} (bound {LOSS_REL})")
+    check(rel <= LOSS_REL, f"{what}: kernel path and plain path first losses disagree")
+
+    # the loader on the card: the precompute (or, in-step, the goal meshes)
+    args = solver.args
+    train = datasets.load_dataset(os.path.join(dataset_dir, "train"), "vertex_sphere", args,
+                                  device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    datasets.load_dataset(os.path.join(dataset_dir, "train"), "vertex_sphere", args,
+                          device=DEVICE)
+    load_s = time.perf_counter() - t0
+    if train.sample_warps is not None:
+        made = ("precomputed warps; share of samples that warp "
+                f"{(np.abs(train.sample_warps).max(-1) > 0).mean():.4f}")
+    else:
+        made = "goal meshes for the in-step path"
+    print(f"{what}: the loader on the card, {train.num_images} train views of {GEN_RES}^2 at "
+          f"{args.number_coarse_samples} samples: {load_s:.3f} s (host clock, second call; PNG "
+          f"reads, LBS, {made})")
+
+    zero_launch_counts()
+    save_dir = os.path.join(tmp, f"{what}_inference")
+    t0 = time.perf_counter()
+    scores = inference.inference([
+        f"--inf_run_dir={kernel_dir}", f"--inf_ground_truth_dir={val_dir}",
+        f"--inf_save_dir={save_dir}", f"--inf_batchsize={BATCH}", f"--device={DEVICE}"])
+    counts = launch_counts()
+    print(f"{what}: inference_torch on the kernel-path run, {GEN_VAL} val views "
+          f"{GEN_RES}x{GEN_RES}: launches {counts}, {time.perf_counter() - t0:.2f} s; "
+          + " ".join(f"{k} {v:.5f}" for k, v in scores.items()))
+    check_counts(f"{what} inference", counts, {"fused_mlp_v2_fwd": val_batches})
+    paths[f"{what}_inference"] = counts
+    with open(os.path.join(save_dir, "scores.json")) as fh:
+        saved = json.load(fh)
+    for key in ("mse", "psnr", "ssim", "rlpips"):
+        check(key in saved and bool(np.isfinite(saved[key])),
+              f"{what} inference: scores.json lacks a finite {key}")
+    check_rerenders(save_dir, GEN_VAL, GEN_RES, "walking.gif")
+
+    held_dir = os.path.join(tmp, f"{what}_held")
+    shutil.copytree(kernel_dir, held_dir)
+    path = os.path.join(held_dir, "model_coarse.pt")
+    sd = torch.load(path, map_location="cpu")
+    sd["sigma_out_layer.bias"] += CULL_FINE_SIGMA_BIAS
+    torch.save(sd, path)
+    held_args = inference.setup_from_run_dir(held_dir)
+    data = datasets.load_dataset(val_dir, "vertex_sphere", held_args, device=DEVICE)
+    views = {"plain": vs_views(held_args, held_dir, data, 0),
+             "kernel": vs_views(held_args, held_dir, data, -1)}
+    zero_launch_counts()
+    views["fused1"] = vs_views(held_args, held_dir, data, 1)
+    counts = launch_counts()
+    check_counts(f"{what} --use_fused_mlp=1 render", counts, {"fused_mlp_fwd": val_batches})
+    paths[f"{what}_fused1_render"] = counts
+    print(f"{what}: the --use_fused_mlp=1 render of the val views: launches {counts}")
+    for path in ("kernel", "fused1"):
+        diff = abs(views[path] - views["plain"])
+        print(f"{what}: val views, same weights, {path} vs plain path: max|diff|="
+              f"{diff.max():.4e} (bound {PIXEL_MAX}), mean|diff|={diff.mean():.4e} "
+              f"(bound {PIXEL_MEAN})")
+        check(bool(np.isfinite(views[path]).all()), f"{what}: non-finite {path} render")
+        check(float(diff.max()) <= PIXEL_MAX and float(diff.mean()) <= PIXEL_MEAN,
+              f"{what}: {path} path and plain path renders disagree")
+
+    view_args = inference.setup_from_run_dir(kernel_dir)
+    view_data = datasets.load_dataset(os.path.join(view_dir, "val"), "vertex_sphere", view_args,
+                                      device=DEVICE)
+    n_views = view_data.num_images
+    ms = {"plain": [], "kernel": []}
+    view_ms = {"plain": [], "kernel": []}
+    vs_views(view_args, kernel_dir, view_data, -1)                  # warm-up
+    for path in ("plain", "kernel", "kernel", "plain"):
+        sol, _ = sample_run(tmp, dataset_dir, f"{what}_{path}_timed", "vertex_sphere",
+                            -1 if path == "kernel" else 0, extra)
+        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vs_views(view_args, kernel_dir if path == "kernel" else plain_dir, view_data,
+                 -1 if path == "kernel" else 0)
+        view_ms[path].append(1e3 * (time.perf_counter() - t0) / n_views)
+    print(f"{what}: ms per step of {BATCH} rays (host clock, synchronised, median without the "
+          f"first step; plain/kernel/kernel/plain): kernel path "
+          f"{statistics.mean(ms['kernel']):.1f} {ms['kernel']}, plain path "
+          f"{statistics.mean(ms['plain']):.1f} {ms['plain']}")
+    print(f"{what}: ms per {VS_VIEW_RES}x{VS_VIEW_RES} view through render_dataset (host clock, "
+          f"model build included, in the same turns): kernel path "
+          f"{statistics.mean(view_ms['kernel']):.1f} {view_ms['kernel']}, plain path "
+          f"{statistics.mean(view_ms['plain']):.1f} {view_ms['plain']}")
+
+    arrays = solver.device_arrays(train, "vertex_sphere")
+    batch = solver.gather(arrays, np.arange(BATCH) * 3 % train.num_rays)
+    solver.train_step(batch, solver.generator)
+    device_ms[f"{what}_train"] = profiled(f"one kernel-path vertex_sphere training step",
+                                          lambda: solver.train_step(batch, solver.generator))
+    device_ms[f"{what}_render"] = profiled(
+        f"kernel-path vertex_sphere render of {n_views} {VS_VIEW_RES}^2 view(s)",
+        lambda: vs_views(view_args, kernel_dir, view_data, -1))
+    if "goal_verts_itable" in batch:
+        passes = solver.pipeline.passes
+        samples = (batch["ray_translation"][:, None, :]
+                   + batch["ray_direction"][:, None, :] * batch["vs_z"][..., None])
+        with torch.no_grad():
+            warp_ms = time_ms(lambda: passes.vertex_sphere_warps(batch, samples), reps=5,
+                              warmup=1)
+        print(f"{what}: device ms of the in-step warp recompute (CUDA events, median of 5): "
+              f"{warp_ms:.3f} for {samples.shape[0]} x {samples.shape[1]} samples and "
+              f"{batch['goal_verts_itable'].shape[1]} vertices")
+    return paths, device_ms
+
+
+def phase_estimator(tmp: str, dataset_dir: str) -> dict:
+    """smpl_estimator: the CNN trains EST_EPOCHS epochs on the generated
+    smpl_nerf set's GEN_RES^2 images through cli.train (routed before any
+    render pipeline): finite losses, the last epoch's below the first's, the
+    run dir reloads with its BatchNorm statistics; seconds per epoch."""
+    from smpl_nerf_tpu_torch.cli import train as train_cli
+    from smpl_nerf_tpu_torch.data import datasets
+    from smpl_nerf_tpu_torch.training import estimator
+
+    run_dir = os.path.join(tmp, "estimator")
+    zero_launch_counts()
+    final, history = train_cli.train(
+        [f"--config={APPEND_CONFIG}", "--model_type=smpl_estimator",
+         f"--dataset_dir={dataset_dir}", f"--num_epochs={EST_EPOCHS}",
+         f"--batchsize={EST_BATCH}", "--lrate=3e-4", "--seed=1"], log_dir=run_dir, device=DEVICE)
+    counts = launch_counts()
+    check_counts("estimator", counts, {})
+    train_loss = history["train_loss"]
+    print(f"estimator: {EST_EPOCHS} epochs on {GEN_VIEWS - GEN_VAL} train views "
+          f"{GEN_RES}x{GEN_RES}, batches of {EST_BATCH}: train losses "
+          + " ".join(f"{v:.5f}" for v in train_loss) + ", val losses "
+          + " ".join(f"{v:.5f}" for v in history["val_loss"])
+          + "; seconds per epoch (host clock) " + " ".join(f"{v:.3f}" for v in history["seconds"]))
+    check(bool(np.isfinite(train_loss + history["val_loss"]).all()), "estimator: non-finite loss")
+    check(train_loss[-1] < train_loss[0], "estimator: the loss did not fall")
+    loaded = estimator.load_estimator(run_dir, DEVICE)
+    check(all(torch.equal(v, final["smpl_estimator"][k].to(v.device))
+              for k, v in loaded.state_dict().items()), "estimator: the run dir does not reload")
+    data = datasets.load_dataset(os.path.join(dataset_dir, "val"), "smpl_estimator")
+    with torch.no_grad():
+        out = loaded(torch.as_tensor(data.images, device=DEVICE))
+    check(out.shape == (GEN_VAL, 2) and bool(torch.isfinite(out).all()),
+          "estimator: the reloaded CNN does not predict")
+    return counts
+
+
 def phase_distill(tmp: str, dataset_dir: str) -> tuple:
     """The distilled-expert serving path through `cli.distill.main`; returns
     (launch counts of the serving run, device ms per launch of a profiled view,
@@ -1889,6 +2252,19 @@ def main() -> None:
         for name in ("sample_pdf", "fused_mlp_v2_fwd", "fused_mlp_v2_bwd", "fused_mlp_fwd"):
             check(sum(paths[p][name] for p in smpl_paths) > 0,
                   f"{name} was launched on no path of the SMPL-driven families")
+        gen_dirs, paths["generate"] = phase_generate(tmp)
+        paths.update(phase_smpl_warp(tmp, gen_dirs["smpl"]))
+        for what, extra in (("vs", ()), ("vs_instep", ("--vertex_sphere_in_step=1",
+                                                      f"--images_per_batch={SMPL_IPB}"))):
+            vs_paths, vs_ms = phase_vertex_sphere(tmp, gen_dirs["smpl_nerf"], gen_dirs["view"],
+                                                  what, extra)
+            paths.update(vs_paths)
+            device_ms.update(vs_ms)
+        vs_paths = [p for p in paths if p.startswith("vs")]
+        for name in ("fused_mlp_v2_fwd", "fused_mlp_v2_bwd", "fused_mlp_fwd"):
+            check(sum(paths[p][name] for p in vs_paths) > 0,
+                  f"{name} was launched on no vertex_sphere path")
+        paths["estimator"] = phase_estimator(tmp, gen_dirs["smpl_nerf"])
         paths["distill"], device_ms["distill"], on_path = phase_distill(tmp, dataset_dir)
         paths["roofline"] = phase_roofline()
     # kernel E's headline is the plan the distill path launched, in its serving type

@@ -19,9 +19,13 @@ walking.gif through `save_rerenders`.
 Runs on the card unless `--device cpu` asks for the plain PyTorch versions.
 The SMPL-driven families (dummy_dynamic, append_vertex_locations_to_nerf,
 image_wise_dynamic) render with the SMPL model the run trained with and the
-pose table of the split being rendered; the culled renderers render them in
-full, as the JAX package's do. smpl, warp, vertex_sphere and smpl_estimator
-runs are not ported yet.
+pose table of the split being rendered. smpl, warp and vertex_sphere render
+from the arrays their loader builds for the split (the surface samples and
+warps; vertex_sphere's z values and warps, precomputed or in-step as the
+run's flags pick); a `warp` run's render is the split's own colours, as in the
+JAX package. The culled renderers render all of these in full, as the JAX
+package's do. smpl_estimator has no render pipeline: `render_dataset`
+raises, where the JAX package's fails building one.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.data import datasets, gif, png
 from smpl_nerf_tpu_torch.data.datasets import RayData
 from smpl_nerf_tpu_torch.evaluation.scores import print_scores
-from smpl_nerf_tpu_torch.pipelines import DYNAMIC_FAMILIES, PORTED_MODEL_TYPES, _not_ported
+from smpl_nerf_tpu_torch.pipelines import SMPL_MODEL_FAMILIES
 from smpl_nerf_tpu_torch.render import batched
 from smpl_nerf_tpu_torch.render import fast as fast_mod
 from smpl_nerf_tpu_torch.training import checkpoints
@@ -74,14 +78,15 @@ def inference_parser() -> config_mod.ConfigArgumentParser:
 
 def setup_from_run_dir(run_dir: str, model_type: Optional[str] = None):
     """The run's resolved flags from run_dir/config.txt (model_type overridden
-    when given); for the SMPL-driven families with the SMPL model loaded onto
-    them (`factory.smpl_model_for`), as the JAX function loads it."""
+    when given); for the SMPL-driven families and vertex_sphere with the SMPL
+    model loaded onto them (`factory.smpl_model_for`), as the JAX function
+    loads it."""
     args = checkpoints.load_config(run_dir)
     if model_type:
         args.model_type = model_type
-    if args.model_type not in PORTED_MODEL_TYPES:
-        raise _not_ported(f"inference of model_type {args.model_type!r}")
-    if args.model_type in DYNAMIC_FAMILIES:
+    if args.model_type not in config_mod.MODEL_TYPES:
+        raise ValueError(f"unknown model_type {args.model_type!r}")
+    if args.model_type in SMPL_MODEL_FAMILIES:
         smpl_model_for(args)
     return args
 
@@ -144,6 +149,9 @@ def render_dataset(args, run_dir: str, data: RayData, fast: int = 0, cap_fractio
     warns when an explicit cap_fraction lies below that derived budget.
     """
     dev = resolve_device(device)
+    if args.model_type == "smpl_estimator":
+        raise ValueError("smpl_estimator runs have no render pipeline to render or score "
+                         "(training/estimator.load_estimator reads the run)")
     pipeline = batched.build_from_run(run_dir, args, dev, dataset_extras(args, data))
     bs = int(batch_size or args.batchsize_val)
     render_fn = render_fn_per_image = None
@@ -201,7 +209,8 @@ def inference(argv: Optional[Sequence[str]] = None) -> dict:
     inf_args, _ = inference_parser().parse_known_args(argv)
     dev = resolve_device(inf_args.device)
     args = setup_from_run_dir(inf_args.inf_run_dir, inf_args.inf_model_type)
-    data = datasets.load_dataset(inf_args.inf_ground_truth_dir, args.model_type)
+    data = datasets.load_dataset(inf_args.inf_ground_truth_dir, args.model_type, args,
+                                 device=dev)
     renders = render_dataset(args, inf_args.inf_run_dir, data, fast=int(inf_args.inf_fast),
                              cap_fraction=float(inf_args.inf_cap_fraction),
                              batch_size=int(inf_args.inf_batchsize), device=dev)

@@ -6,14 +6,14 @@ Same CLI contract as the JAX package's train.py: model_type dispatch, dataset
 loading from `<dataset_dir>/train` and `<dataset_dir>/val`, model
 construction, solver training, run-dir saving (config.txt + model_*.pt).
 Runs on the card unless `--device cpu` asks for the plain PyTorch versions.
-Ported for nerf, original_nerf, smpl_nerf, append_to_nerf,
-append_smpl_params and the SMPL-driven families dummy_dynamic,
-append_vertex_locations_to_nerf and image_wise_dynamic (its own trainer,
-`training/image_wise.py`). Those get the SMPL model as the JAX package picks
-it (`factory.smpl_model_for`: the procedural human unless a licensed pkl is
-named), and --use_gmm_loss gets the canonical vertices of that model. The
-smpl, warp, vertex_sphere and smpl_estimator families are not ported yet. A
-flag whose machinery is not ported (`UNPORTED_FLAGS`) raises when it is set
+Every model type trains: image_wise_dynamic through its own trainer
+(`training/image_wise.py`) and smpl_estimator through `train_estimator`
+(`training/estimator.py`), both routed before a render pipeline is built.
+The SMPL-driven families and vertex_sphere get the SMPL model as the JAX
+package picks it (`factory.smpl_model_for`: the procedural human unless a
+licensed pkl is named) before the splits load, because vertex_sphere's
+loader needs it; --use_gmm_loss gets the canonical vertices of that model.
+A flag whose machinery is not ported (`UNPORTED_FLAGS`) raises when it is set
 to anything but its default, before any data is loaded.
 
 With `--render_gif` (on by default), a nerf, smpl_nerf or append run then
@@ -39,7 +39,8 @@ from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.cli.inference import inference_gif
 from smpl_nerf_tpu_torch.data import datasets
 from smpl_nerf_tpu_torch.models import smpl as smpl_mod
-from smpl_nerf_tpu_torch.pipelines import RenderConfig, _not_ported, build_pipeline
+from smpl_nerf_tpu_torch.pipelines import (SMPL_MODEL_FAMILIES, RenderConfig, _not_ported,
+                                           build_pipeline)
 from smpl_nerf_tpu_torch.training import checkpoints
 from smpl_nerf_tpu_torch.training.factory import (build_models_and_params, dataset_extras,
                                                   smpl_model_for)
@@ -73,21 +74,24 @@ def _default_log_dir(args) -> str:
 def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
           device=DEFAULT_DEVICE):
     """The trained Solver; for image_wise_dynamic what `train_image_wise`
-    returns (the final state dicts and the per-epoch pose errors)."""
+    returns (the final state dicts and the per-epoch pose errors), for
+    smpl_estimator what `train_estimator` returns (the final state dict and
+    the per-epoch losses)."""
     parser = config_mod.config_parser()
     args = parser.parse_args(argv)
     if args.model_type not in config_mod.MODEL_TYPES:
         raise ValueError("The model type you stated is unknown")
-    if args.model_type not in datasets.LOADABLE_MODEL_TYPES:
-        raise _not_ported(f"training of model_type {args.model_type!r}")
     _refuse_unported_flags(args, parser)
     dev = resolve_device(device)
     seed = int(getattr(args, "seed", 0))
     np.random.seed(seed)
     torch.manual_seed(seed)
 
-    train_data = datasets.load_dataset(os.path.join(args.dataset_dir, "train"), args.model_type)
-    val_data = datasets.load_dataset(os.path.join(args.dataset_dir, "val"), args.model_type)
+    if args.model_type in SMPL_MODEL_FAMILIES:
+        smpl_model_for(args)          # on args._smpl_model, which vertex_sphere's loader reads
+    train_data, val_data = (datasets.load_dataset(os.path.join(args.dataset_dir, split),
+                                                  args.model_type, args, device=dev)
+                            for split in ("train", "val"))
     extras = dataset_extras(args, train_data)
     log_dir = log_dir or _default_log_dir(args)
 
@@ -98,11 +102,16 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
 
     models, encoders = build_models_and_params(args, seed=seed, device=dev, extras=extras)
     if args.load_run:
-        for name, sd in checkpoints.load_run(args.load_run).items():
+        required = "smpl_estimator" if args.model_type == "smpl_estimator" else "model_coarse"
+        for name, sd in checkpoints.load_run(args.load_run, required).items():
             models[name].load_state_dict(sd)
         print("Models loaded from", args.load_run)
 
     os.makedirs(log_dir, exist_ok=True)
+    if args.model_type == "smpl_estimator":
+        # supervised CNN training has no render pipeline: routed before one is built
+        from smpl_nerf_tpu_torch.training.estimator import train_estimator
+        return train_estimator(args, parser, train_data, val_data, models, log_dir)
     cfg = RenderConfig.from_args(args)
     pipeline = build_pipeline(cfg, models, encoders, extras)
     canonical_vertices = None

@@ -9,7 +9,8 @@ including list values such as ``skips = [4]``:
   * repeated (``action="append"``) flags serialize as ``key = [v1, v2]``,
   * ``parser.write_config_file(args, [path])`` writes the resolved config back out.
 
-The dataset-generation parser is not ported yet.
+`config_parser` is the training flag surface, `dataset_config_parser` the
+dataset generator's (create_dataset_torch.py).
 """
 from __future__ import annotations
 
@@ -303,8 +304,50 @@ def config_parser() -> ConfigArgumentParser:
                              "deterministic stride over the val set) instead of all "
                              "of them; final scores always use the full set")
     parser.add_argument("--images_per_batch", type=int, default=0,
-                        help="not ported yet: training raises when it is >0 (drawing "
-                             "each ray batch from this many images); every batch "
-                             "draws from all images")
+                        help=">0 (the SMPL-driven families, in-step vertex_sphere): "
+                             "draw each ray batch from this many images, so the in-step "
+                             "SMPL work runs on at most that many poses")
     parser.add_argument("--seed", type=int, default=0)
+    return parser
+
+
+def dataset_config_parser() -> ConfigArgumentParser:
+    """Dataset-generation flag surface: the same flags and defaults as
+    smpl_nerf_tpu.config.dataset_config_parser (reference create_dataset.py:17-64)."""
+    parser = ConfigArgumentParser()
+    parser.add_argument("--save_dir", default="data")
+    parser.add_argument("--dataset_type", default="nerf", type=str,
+                        help="[smpl_nerf, nerf, pix2pix, smpl]")
+    parser.add_argument("--train_val_ratio", default=0.8, type=float)
+    parser.add_argument("--resolution", default=128, type=int)
+    parser.add_argument("--camera_radius", default=2.4, type=float)
+    parser.add_argument("--camera_path", default="sphere",
+                        help="[sphere, circle, circle_on_sphere]")
+    parser.add_argument("--start_angle", default=-90, type=int)
+    parser.add_argument("--end_angle", default=90, type=int)
+    parser.add_argument("--number_steps", default=10, type=int)
+    parser.add_argument("--joints", action="append", type=int, default=[41, 38])
+    parser.add_argument("--human_start_angle", default=-90, type=int)
+    parser.add_argument("--human_end_angle", default=90, type=int)
+    parser.add_argument("--human_number_steps", default=10, type=int)
+    parser.add_argument("--multi_human_pose", type=int, default=0)
+    parser.add_argument("--train_index", default=[], action="append")
+    parser.add_argument("--val_index", default=[], action="append")
+    parser.add_argument("--smpl_sequence_file", default=None, type=str)
+    parser.add_argument("--sequence_start", default=0, type=int)
+    parser.add_argument("--sequence_skip", default=3, type=int)
+    parser.add_argument("--texture", default=1, type=int)
+    parser.add_argument("--sequence_end", default=-1, type=int)
+    parser.add_argument("--frames_per_view", default=1, type=int)
+    parser.add_argument("--center_phi", default=0, type=float)
+    parser.add_argument("--center_theta", default=0, type=float)
+    parser.add_argument("--circle_on_sphere_radius", default=10, type=float)
+    parser.add_argument("--smpl_model_path", default=None, type=str,
+                        help="optional licensed SMPL .pkl; falls back to the built-in "
+                             "procedural human")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--supersample", type=int, default=1,
+                        help=">1: anti-aliased ground truth: render RGB at NxN subpixels "
+                             "per pixel and box-average down (nerf / smpl_nerf / pix2pix "
+                             "types). 1 matches the reference's single-ray-per-pixel renders")
     return parser

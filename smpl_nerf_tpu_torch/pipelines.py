@@ -22,6 +22,20 @@ the canonical mesh, and have no fine pass; append_vertex_locations_to_nerf
 embeds the goal mesh's vertex cloud once per image (`VertexEmbedder`) and
 hands it to both nets as a 64-wide prefix.
 
+Three families have a pipeline of their own (`FamilyPasses.smpl`, `.warp_only`,
+`.vertex_sphere`), from samples the loader precomputed, with no fine pass:
+  * smpl: one surface sample per ray, moved by its ground-truth warp, through
+    the coarse net's PLAIN forward and a sigmoid, whatever --use_fused_mlp
+    says (the JAX package calls the flax module there, not its runner);
+  * warp: the warp field alone on the surface sample and two joints; the
+    loss holds it against the ground-truth warp, and the rgb outputs are the
+    batch's own (the nets get no gradient);
+  * vertex_sphere: every coarse sample moved by its ground-truth vertex-sphere
+    warp, precomputed by the loader or, in-step, recomputed from the batch's
+    goal meshes (`ops/vertex_sphere.sample_warps_by_vertex_sphere_rays`; with
+    --images_per_batch K only the batch's K unique meshes are read), through
+    the coarse net's runner (so kernels B and C, or D, on the card).
+
 The MLP runner owns the encoding step:
   * use_fused_mlp=0: PositionalEncoder + the RenderRayNet module,
   * use_fused_mlp=1: encode, then the fused v1 forward (ops/fused_mlp.py): the
@@ -32,7 +46,7 @@ The MLP runner owns the encoding step:
   * use_fused_mlp=-1 (auto): as JAX's auto picks on its accelerator, mode 2
     on CUDA for each net the v2 kernels take (prefix-free, bf16, W <= 256),
     else mode 0; always mode 0 on the CPU.
-The smpl, warp, vertex_sphere and smpl_estimator families are not ported yet.
+smpl_estimator trains a CNN with no render pipeline (training/estimator.py).
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from smpl_nerf_tpu_torch.config import MODEL_TYPES
 from smpl_nerf_tpu_torch.core.encoding import PositionalEncoder
 from smpl_nerf_tpu_torch.core.integrate import raw2outputs
 from smpl_nerf_tpu_torch.core.sampling import coarse_sampling, fine_sampling
@@ -48,13 +63,16 @@ from smpl_nerf_tpu_torch.models import smpl as smpl_mod
 from smpl_nerf_tpu_torch.ops import fused_mlp as fused_mod
 from smpl_nerf_tpu_torch.ops import fused_mlp_v2 as fused_v2
 from smpl_nerf_tpu_torch.ops.vertex_attention import vertex_attention_warp
+from smpl_nerf_tpu_torch.ops.vertex_sphere import sample_warps_by_vertex_sphere_rays
 
 # the families that run SMPL LBS on the batch's images inside the step
 DYNAMIC_FAMILIES = ("dummy_dynamic", "image_wise_dynamic", "append_vertex_locations_to_nerf")
 # their pipeline has a coarse pass only, whatever --run_fine says
 COARSE_ONLY_FAMILIES = ("dummy_dynamic", "image_wise_dynamic")
-PORTED_MODEL_TYPES = ("nerf", "original_nerf", "smpl_nerf", "append_to_nerf",
-                      "append_smpl_params") + DYNAMIC_FAMILIES
+# the families with a pipeline of their own on the loader's samples, no fine pass
+SAMPLE_FAMILIES = ("smpl", "warp", "vertex_sphere")
+# the families that need the SMPL model (LBS in the step, or vertex_sphere's loader)
+SMPL_MODEL_FAMILIES = DYNAMIC_FAMILIES + ("vertex_sphere",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +92,8 @@ class RenderConfig:
     use_fused_mlp: int = 0  # 0 off, 1 fused MLP, 2 fused MLP + in-kernel encoding
     warp_radius: float = 0.01
     warp_temperature: float = 10000.0
+    vertex_sphere_radius: float = 0.01
+    warp_by_vertex_mean: bool = False
     use_gmm_loss: bool = False
     gmm_std: float = 0.07
     images_per_batch: int = 0
@@ -94,6 +114,8 @@ class RenderConfig:
             use_fused_mlp=int(getattr(args, "use_fused_mlp", 0) or 0),
             warp_radius=float(args.warp_radius),
             warp_temperature=float(args.warp_temperature),
+            vertex_sphere_radius=float(getattr(args, "vertex_sphere_radius", 0.01)),
+            warp_by_vertex_mean=bool(int(getattr(args, "warp_by_vertex_mean", 0) or 0)),
             use_gmm_loss=bool(int(args.use_gmm_loss)),
             gmm_std=float(args.gmm_std),
             images_per_batch=int(getattr(args, "images_per_batch", 0) or 0),
@@ -102,7 +124,8 @@ class RenderConfig:
     @property
     def has_fine(self) -> bool:
         """Whether the pipeline runs a fine pass."""
-        return self.run_fine and self.model_type not in COARSE_ONLY_FAMILIES
+        return (self.run_fine and self.model_type not in COARSE_ONLY_FAMILIES
+                and self.model_type not in SAMPLE_FAMILIES)
 
 
 def build_encoders(args) -> Dict[str, PositionalEncoder]:
@@ -244,7 +267,8 @@ class FamilyPasses:
     unit directions from the origin (per sample), coarse pass only.
     append_vertex_locations_to_nerf: the embedded goal mesh is the prefix.
 
-    extras (the SMPL-driven families): 'smpl_model' and 'betas'.
+    extras (the SMPL-driven families and in-step vertex_sphere): 'smpl_model'
+    and 'betas'.
     """
 
     def __init__(self, cfg: RenderConfig, models: Dict[str, torch.nn.Module],
@@ -386,6 +410,66 @@ class FamilyPasses:
         return self._net_pass("model_fine", origins, dirs, pose, samples, z_fine, noise, gen,
                               fine=True)
 
+    # ------------------------------------ the families on the loader's samples
+    def smpl(self, batch, noise: float = 0.0, gen=None) -> dict:
+        """The surface sample moved by its ground-truth warp through the coarse
+        net's plain forward; rgb = sigmoid of its first three outputs."""
+        warped = batch["ray_samples"] + batch["warp"]                      # [R, 3]
+        direction = _normalize(warped - batch["ray_translation"])
+        inputs = torch.cat([self.encoders["position"].encode(warped),
+                            self.encoders["direction"].encode(direction)], -1)
+        rgb = torch.sigmoid(self.models["model_coarse"](inputs)[..., :3])
+        return {"rgb_coarse": rgb, "rgb_fine": rgb}
+
+    def warp_only(self, batch, noise: float = 0.0, gen=None) -> dict:
+        """The warp field on the surface sample and two joints; the loss holds
+        `warp` against the batch's, the rgb outputs are the batch's own."""
+        sample = batch["ray_samples"]                                       # [R, 3]
+        pose2 = two_joint_pose(self.cfg, batch)
+        if self.cfg.human_pose_encoding:
+            inputs = torch.cat([self.encoders["position"].encode(sample),
+                                self.encoders["human_pose"].encode(pose2)], -1)
+        else:
+            inputs = torch.cat([sample, pose2], -1)
+        return {"warp": self.models["model_warp_field"](inputs),
+                "rgb_coarse": batch["rgb"], "rgb_fine": batch["rgb"]}
+
+    def vertex_sphere_warps(self, batch, samples: torch.Tensor) -> torch.Tensor:
+        """In-step ground-truth warps [R, S, 3] of `samples` from the goal
+        meshes of the batch's images (the whole table `goal_verts_itable`,
+        read for the batch's K unique images under --images_per_batch K)."""
+        table = batch["goal_verts_itable"]                                  # [N_img, V, 3]
+        image_indices = batch["image_indices"].long()
+        K = self.cfg.images_per_batch
+        if K and K < table.shape[0]:
+            uniq = unique_padded(image_indices, K)
+            ray_pos = torch.argmax((image_indices[:, None] == uniq[None, :]).int(), 1)
+            goal_verts = table[uniq.clamp(min=0)][ray_pos]
+        else:
+            goal_verts = table[image_indices]
+        canonical = self.canonical_vertices(goal_verts.device)
+        return sample_warps_by_vertex_sphere_rays(
+            samples, goal_verts, canonical[None] - goal_verts, self.cfg.vertex_sphere_radius,
+            self.cfg.warp_by_vertex_mean)
+
+    def vertex_sphere(self, batch, noise: float = 0.0, gen=None) -> dict:
+        """Every coarse sample moved by its ground-truth warp (precomputed, or
+        recomputed in-step from the split's shared jitter `vs_z`) through the
+        coarse net's runner; no fine pass."""
+        origins = batch["ray_translation"]
+        if "warp" in batch:
+            samples, z_vals, warp = batch["ray_samples"], batch["z_vals"], batch["warp"]
+        else:
+            z_vals = batch["vs_z"]                                          # [R, S]
+            samples = origins[:, None, :] + batch["ray_direction"][:, None, :] * z_vals[..., None]
+            warp = self.vertex_sphere_warps(batch, samples)
+        warped = samples + warp
+        sample_dirs = warped - origins[:, None, :]
+        raw = self.run("model_coarse", warped, _normalize(sample_dirs))
+        out = raw2outputs(raw, z_vals, sample_dirs, noise, self.cfg.white_background, gen)
+        return {"rgb_coarse": out.rgb, "rgb_fine": out.rgb, "warp": warp,
+                "ray_samples": samples, "warped_samples": warped, "densities": out.density}
+
 
 class Pipeline:
     """A built pipeline: call as fn(batch, generator=None, train=False) -> outputs.
@@ -401,6 +485,10 @@ class Pipeline:
                  train: bool = False):
         gen = generator if train else None
         noise = self.cfg.sigma_noise_std if train else 0.0
+        own = {"smpl": self.passes.smpl, "warp": self.passes.warp_only,
+               "vertex_sphere": self.passes.vertex_sphere}.get(self.cfg.model_type)
+        if own is not None:
+            return own(batch, noise, gen)
         origins, dirs = batch["ray_translation"], batch["ray_direction"]
         pose = self.passes.pose(batch)
         out, z_vals, extras = self.passes.coarse(origins, dirs, pose, noise, gen)
@@ -416,9 +504,13 @@ class Pipeline:
 def build_pipeline(cfg: RenderConfig, models: Dict[str, torch.nn.Module],
                    encoders: Dict[str, PositionalEncoder],
                    extras: Optional[dict] = None) -> Pipeline:
-    """The pipeline for cfg.model_type (one of PORTED_MODEL_TYPES). extras:
+    """The pipeline for cfg.model_type (any of config.MODEL_TYPES but
+    smpl_estimator, which has none). extras:
     the per-dataset constants of the SMPL-driven families ('smpl_model',
     'betas'; training.factory.dataset_extras)."""
-    if cfg.model_type not in PORTED_MODEL_TYPES:
-        raise _not_ported(f"model_type {cfg.model_type!r}")
+    if cfg.model_type == "smpl_estimator":
+        raise ValueError("smpl_estimator has no render pipeline: it trains through "
+                         "training/estimator.train_estimator")
+    if cfg.model_type not in MODEL_TYPES:
+        raise ValueError(f"unknown model_type {cfg.model_type!r}")
     return Pipeline(FamilyPasses(cfg, models, encoders, extras))

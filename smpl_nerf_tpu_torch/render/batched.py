@@ -2,8 +2,10 @@
 smpl_nerf_tpu/training/solver.py:Solver.render_rays_batched).
 
 Rays are cut into chunks of `batch_size` (`batch_bounds`); the last chunk is
-padded with its LAST ray (`padded_rows`), and each ray's `human_pose` is
-gathered from the per-image pose table through its image index. The
+padded with its LAST ray (`padded_rows`), and each batch is gathered from the
+split's `batch_arrays` as a training batch is (`solver.gather_batch`: each
+ray's `human_pose` through its image index, and the arrays of the smpl, warp
+and vertex_sphere families). The
 SMPL-driven families look their poses up in the table of the split being
 rendered (`solver.swap_pose_table`), and with --images_per_batch no batch
 may span more images than that (`solver.check_batch_images`). The
@@ -26,7 +28,8 @@ from smpl_nerf_tpu_torch.data.datasets import RayData
 from smpl_nerf_tpu_torch.pipelines import Pipeline, RenderConfig, build_pipeline
 from smpl_nerf_tpu_torch.training import checkpoints
 from smpl_nerf_tpu_torch.training.factory import build_models_and_params
-from smpl_nerf_tpu_torch.training.solver import check_batch_images, swap_pose_table
+from smpl_nerf_tpu_torch.training.solver import (check_batch_images, gather_batch,
+                                                 swap_pose_table)
 
 
 def image_spans(num_rays: int, num_images: int, per_image: bool) -> List[tuple]:
@@ -65,17 +68,12 @@ def render_rays_batched(pipeline: Pipeline, data: RayData, batch_size: int,
     render_fn_per_image: image index -> such a render_fn; batches then never
     mix two images' rays.
     """
-    arrays = {"ray_translation": torch.as_tensor(data.origins, dtype=torch.float32,
-                                                 device=device),
-              "ray_direction": torch.as_tensor(data.directions, dtype=torch.float32,
-                                               device=device),
-              "image_indices": torch.as_tensor(data.image_indices, dtype=torch.long,
-                                               device=device)}
-    pose_table = (torch.as_tensor(data.human_poses, dtype=torch.float32, device=device)
-                  if data.human_poses is not None else None)
+    cfg = getattr(pipeline, "cfg", None)        # any batch -> outputs callable renders
+    arrays = {k: torch.as_tensor(v, device=device)
+              for k, v in data.batch_arrays(cfg.model_type if cfg else "nerf").items()}
+    arrays["image_indices"] = arrays["image_indices"].long()
     out = torch.empty((data.num_rays, 3), dtype=torch.float32, device=device)
     fn, current = render_fn, None
-    cfg = getattr(pipeline, "cfg", None)        # any batch -> outputs callable renders
     with swap_pose_table(getattr(pipeline, "models", {}), data.human_poses):
         for image, lo, hi in batch_bounds(data.num_rays, data.num_images, batch_size,
                                           render_fn_per_image is not None):
@@ -84,11 +82,8 @@ def render_rays_batched(pipeline: Pipeline, data: RayData, batch_size: int,
                 fn, current = render_fn_per_image(image), image
             if cfg is not None and cfg.images_per_batch:
                 check_batch_images(cfg, padded_rows(lo, hi, batch_size).numpy(),
-                                   data.image_indices)
-            idx = padded_rows(lo, hi, batch_size, device)
-            batch = {k: v[idx] for k, v in arrays.items()}
-            if pose_table is not None:
-                batch["human_pose"] = pose_table[batch["image_indices"]]
+                                   data.image_indices, arrays)
+            batch = gather_batch(arrays, padded_rows(lo, hi, batch_size, device))
             rgb = fn(batch) if fn is not None else pipeline(batch)["rgb_fine"]
             out[lo:hi] = rgb[:hi - lo]
     return out.cpu().numpy()

@@ -12,11 +12,17 @@ run also keeps `train_state.pt`, the port's own resume state (optimizer
 moments, EMA shadow, raw weights, epoch, best validation loss).
 
 `params_from_jax` carries weights over from a JAX params tree of numpy arrays:
-flax Dense `kernel [in, out]` becomes torch `weight [out, in]`, and the flax
-names `positional_net_{i}` / `directional_net_0` become the reference's
-`positional_net.{i}` / `directional_net.0`; a leaf that is no Dense layer
-(`arm_angle_l`, `arm_angle_r`) and the `constants` collection (`goal_poses`,
-a buffer in the port) keep their names.
+flax Dense `kernel [in, out]` becomes torch `weight [out, in]`, a Conv
+`kernel [kh, kw, in, out]` (HWIO) becomes `weight [out, in, kh, kw]` (OIHW),
+BatchNorm's `scale` / `bias` become `weight` / `bias` and its `batch_stats`
+`mean` / `var` the buffers `running_mean` / `running_var`; the flax names
+`positional_net_{i}` / `directional_net_0` / `vertices_net_{i}` become
+`positional_net.{i}` / `directional_net.0` / `vertices_net.{i}`; a leaf that
+is no layer (`arm_angle_l`, `arm_angle_r`) and the `constants` collection
+(`goal_poses`, a buffer in the port) keep their names. The CNN estimator's
+`fc1` rows stay in flax's NHWC flatten order, which the port's
+`SmplEstimator` flattens in. The estimator's run dir holds its BatchNorm
+statistics with its weights (`model_smpl_estimator.pt`).
 """
 from __future__ import annotations
 
@@ -34,28 +40,45 @@ MODEL_NAMES = ("model_coarse", "model_fine", "model_warp_field", "smpl_estimator
 
 
 def _torch_layer_name(flax_name: str) -> str:
-    for prefix in ("positional_net_", "directional_net_"):
+    for prefix in ("positional_net_", "directional_net_", "vertices_net_"):
         if flax_name.startswith(prefix):
             return f"{prefix[:-1]}.{flax_name[len(prefix):]}"
     return flax_name
 
 
+_COLLECTIONS = ("params", "constants", "batch_stats")
+# flax leaf name -> torch name, for the layers that are not Dense / Conv
+_LEAF_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+               "var": "running_var"}
+
+
+def _t(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32))
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"model_coarse": {"params": {layer: {"kernel", "bias"}}}, "smpl_estimator":
-    {"constants": {"goal_poses": ...}}, ...} -> state dicts."""
+    {"constants": {"goal_poses": ...}} or {"params": ..., "batch_stats": ...},
+    ...} -> state dicts."""
     state_dicts = {}
     for model_name, variables in tree.items():
-        collections = ([variables[c] for c in ("params", "constants") if c in variables]
-                       if "params" in variables or "constants" in variables else [variables])
+        collections = ([variables[c] for c in _COLLECTIONS if c in variables]
+                       if any(c in variables for c in _COLLECTIONS) else [variables])
         sd = {}
         for layers in collections:
             for layer, leaves in layers.items():
                 if not isinstance(leaves, Mapping):          # a bare leaf, kept by name
-                    sd[layer] = torch.tensor(np.asarray(leaves, np.float32))
+                    sd[layer] = _t(leaves)
                     continue
                 name = _torch_layer_name(layer)
-                sd[f"{name}.weight"] = torch.tensor(np.asarray(leaves["kernel"], np.float32).T)
-                sd[f"{name}.bias"] = torch.tensor(np.asarray(leaves["bias"], np.float32))
+                if "kernel" in leaves:
+                    kernel = np.asarray(leaves["kernel"], np.float32)
+                    sd[f"{name}.weight"] = _t(kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4
+                                              else kernel.T)
+                    sd[f"{name}.bias"] = _t(leaves["bias"])
+                    continue
+                for leaf, value in leaves.items():            # BatchNorm params or stats
+                    sd[f"{name}.{_LEAF_NAMES[leaf]}"] = _t(value)
         state_dicts[model_name] = sd
     return state_dicts
 
@@ -92,15 +115,17 @@ def load_config(run_dir: str):
     return config_mod.config_parser().parse_args([f"--config={cfg_path}"])
 
 
-def load_run(run_dir: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{model name: state_dict} for each model_*.pt present in run_dir."""
+def load_run(run_dir: str, required: str = "model_coarse") -> Dict[str, Dict[str, torch.Tensor]]:
+    """{model name: state_dict} for each model_*.pt present in run_dir; raises
+    when the `required` model's file is absent (an estimator run holds only
+    model_smpl_estimator.pt)."""
     state_dicts = {}
     for name in MODEL_NAMES:
         path = os.path.join(run_dir, weights_file(name))
         if os.path.exists(path):
             state_dicts[name] = torch.load(path, map_location="cpu", weights_only=True)
-    if "model_coarse" not in state_dicts:
-        raise FileNotFoundError(f"no model_coarse.pt in {run_dir}")
+    if required not in state_dicts:
+        raise FileNotFoundError(f"no {weights_file(required)} in {run_dir}")
     return state_dicts
 
 

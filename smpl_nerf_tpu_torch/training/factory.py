@@ -1,13 +1,15 @@
 """Model factory (counterpart of smpl_nerf_tpu/training/factory.py:build_models_and_params).
 
 model_type -> nn.Modules with weights drawn from a seeded torch.Generator
-(flax's Dense init: lecun-normal kernels, zero biases), for the nerf,
-smpl_nerf and append families and the three SMPL-driven families
-(dummy_dynamic, image_wise_dynamic, append_vertex_locations_to_nerf), which
-also get their estimator and, for append_vertex_locations_to_nerf, the
-vertex embedder. `smpl_model_for` and `dataset_extras` give those families
-the SMPL model and the per-dataset constants. SIREN nets, grid encoders and
-the CNN estimator are not ported yet.
+(flax's Dense init: lecun-normal kernels, zero biases), for every model type:
+the coarse and fine nets, plus the warp field (smpl_nerf, warp), the
+estimators of the SMPL-driven families (dummy_dynamic, image_wise_dynamic,
+append_vertex_locations_to_nerf), the vertex embedder of
+append_vertex_locations_to_nerf, and the CNN `SmplEstimator` of
+smpl_estimator, sized to the dataset's images. `smpl_model_for` and
+`dataset_extras` give the SMPL-driven families and vertex_sphere the SMPL
+model and the per-dataset constants. SIREN nets and grid encoders are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -19,13 +21,15 @@ import torch
 import torch.nn as nn
 
 from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
+from smpl_nerf_tpu_torch.config import MODEL_TYPES
 from smpl_nerf_tpu_torch.core.encoding import PositionalEncoder
 from smpl_nerf_tpu_torch.models import RenderRayNet, WarpFieldNet
 from smpl_nerf_tpu_torch.models import smpl as smpl_mod
 from smpl_nerf_tpu_torch.models.dummy_estimators import (DummyImageWiseEstimator,
                                                           DummySmplEstimatorModel)
 from smpl_nerf_tpu_torch.models.render_ray_net import _linear, init_linear_
-from smpl_nerf_tpu_torch.pipelines import (DYNAMIC_FAMILIES, PORTED_MODEL_TYPES, _not_ported,
+from smpl_nerf_tpu_torch.models.smpl_estimator import SmplEstimator
+from smpl_nerf_tpu_torch.pipelines import (SMPL_MODEL_FAMILIES, _not_ported,
                                            build_encoders)
 
 VERTEX_EMBEDDING_DIM = 64
@@ -68,13 +72,15 @@ def smpl_model_for(args) -> smpl_mod.SmplModel:
 
 def dataset_extras(args, data) -> Dict[str, Any]:
     """The per-dataset constants the factory and the pipeline read: betas, the
-    split's pose table (`goal_poses`) and, for the SMPL-driven families, the
-    SMPL model and its vertex count."""
+    split's pose table (`goal_poses`), the image size (the CNN estimator's
+    input) and, for the SMPL-driven families and vertex_sphere, the SMPL model
+    and its vertex count."""
     extras: Dict[str, Any] = {
-        "betas": data.betas if data.betas is not None else np.zeros(10, np.float32)}
+        "betas": data.betas if data.betas is not None else np.zeros(10, np.float32),
+        "image_size": (data.h, data.w)}
     if data.human_poses is not None:
         extras["goal_poses"] = data.human_poses
-    if args.model_type in DYNAMIC_FAMILIES:
+    if args.model_type in SMPL_MODEL_FAMILIES:
         extras["smpl_model"] = smpl_model_for(args)
         extras["num_vertices"] = extras["smpl_model"].num_vertices
     return extras
@@ -86,14 +92,14 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE,
     """Returns (models, encoders). The parameters live inside the modules,
     which are in eval mode on `device`.
 
-    extras (the SMPL-driven families): 'goal_poses' [N_img, 69] for the dummy
+    extras (`dataset_extras`): 'goal_poses' [N_img, 69] for the dummy
     estimator, 'num_vertices' for the vertex embedder, 'canonical_pose' for
-    the image-wise one.
+    the image-wise one, 'image_size' (h, w) for the CNN estimator.
     """
     device = resolve_device(device)
     extras = extras or {}
-    if args.model_type not in PORTED_MODEL_TYPES:
-        raise _not_ported(f"model_type {args.model_type!r}")
+    if args.model_type not in MODEL_TYPES:
+        raise ValueError(f"unknown model_type {args.model_type!r}")
     if int(getattr(args, "siren", 0)):
         raise _not_ported("--siren (SirenRenderRayNet)")
     if int(getattr(args, "grid_encoding", 0) or 0):
@@ -121,7 +127,7 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE,
                                    width=int(args.netwidth_fine),
                                    skips=tuple(int(s) for s in args.skips_fine), **common),
     }
-    if args.model_type == "smpl_nerf":
+    if args.model_type in ("smpl_nerf", "warp"):
         warp_pos_dim = (encoders["position"].output_dim
                         if int(args.human_pose_encoding) else 1) * 3
         models["model_warp_field"] = WarpFieldNet(
@@ -130,6 +136,11 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE,
             generator=generator)
     if args.model_type in ("dummy_dynamic", "append_vertex_locations_to_nerf"):
         models["smpl_estimator"] = DummySmplEstimatorModel(extras["goal_poses"], device=device)
+    if args.model_type == "smpl_estimator":
+        size = extras.get("image_size", 128)        # five max-pools: at least 32 a side
+        models["smpl_estimator"] = SmplEstimator(
+            len(args.human_joints), (size, size) if np.isscalar(size) else tuple(size),
+            device=device, generator=generator)
     if args.model_type == "image_wise_dynamic":
         models["smpl_estimator"] = DummyImageWiseEstimator(extras.get("canonical_pose"),
                                                            device=device)

@@ -21,9 +21,12 @@ each batch from K images (the same numpy draws as the JAX solver, so the same
 indices for the same seed); the SMPL-driven families then run LBS on those K
 poses only, and validation and renders must keep every batch within K images
 (`check_batch_images`). Validation and renders of those families look poses up
-in the table of the split they evaluate (`swap_pose_table`). Not ported yet:
-the supervised `warp` loss, per-epoch re-render logging, tensor/mesh/
-multi-host parallelism and --check_nans.
+in the table of the split they evaluate (`swap_pose_table`); in-step
+vertex_sphere batches carry their goal-mesh table whole ('_itable') and are
+guarded the same way. `warp` trains its warp field alone on MSE against the
+dataset's warp; Adam leaves the nets, which get no gradient, where they are.
+Not ported yet: per-epoch re-render logging, tensor/mesh/multi-host
+parallelism and --check_nans.
 """
 from __future__ import annotations
 
@@ -83,11 +86,16 @@ def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor) -> dict:
     Keys ending in '_table' are per-IMAGE arrays (e.g. 'human_pose_table'
     [N_img, 69]); they are mapped through the gathered image_indices, so the
     pipeline sees a per-ray key ('human_pose' [R, 69]) without the dataset
-    ever holding per-ray duplicates.
+    ever holding per-ray duplicates. Keys ending in '_itable' pass through
+    whole: the pipeline reads the rows of the batch's images itself (in-step
+    vertex_sphere's goal meshes, [N_img, V, 3]).
     """
-    batch = {k: v[idx] for k, v in arrays.items() if not k.endswith("_table")}
+    batch = {k: v[idx] for k, v in arrays.items()
+             if not (k.endswith("_table") or k.endswith("_itable"))}
     for k, v in arrays.items():
-        if k.endswith("_table"):
+        if k.endswith("_itable"):
+            batch[k] = v
+        elif k.endswith("_table"):
             batch[k[:-len("_table")]] = v[batch["image_indices"].long()]
     return batch
 
@@ -114,12 +122,17 @@ def swap_pose_table(models, goal_poses):
         est.goal_poses = old
 
 
-def check_batch_images(cfg, idx: np.ndarray, image_indices: np.ndarray) -> None:
+def check_batch_images(cfg, idx: np.ndarray, image_indices: np.ndarray,
+                       arrays=None) -> None:
     """Refuse an evaluation or render batch that spans more than
     --images_per_batch images: the in-step lookup keeps K of them and would
-    give the other rays the wrong image's mesh without a word."""
+    give the other rays the wrong image's mesh without a word. Guards the
+    SMPL-driven families, and in-step vertex_sphere (`arrays` holding
+    'goal_verts_itable')."""
     K = int(cfg.images_per_batch or 0)
-    if not K or cfg.model_type not in DYNAMIC_FAMILIES:
+    dedups = (cfg.model_type in DYNAMIC_FAMILIES
+              or (arrays is not None and "goal_verts_itable" in arrays))
+    if not K or not dedups:
         return
     if K >= int(image_indices.max()) + 1:
         return
@@ -132,7 +145,7 @@ def check_batch_images(cfg, idx: np.ndarray, image_indices: np.ndarray) -> None:
 
 def make_loss_fn(pipeline: Pipeline, canonical_vertices=None) -> Callable:
     """Loss = MSE(coarse) + MSE(fine) [+ GMM density prior, with
-    --use_gmm_loss and canonical vertices]."""
+    --use_gmm_loss and canonical vertices]; for `warp`, MSE(warp) alone."""
     gmm = None
     if pipeline.cfg.use_gmm_loss and canonical_vertices is not None:
         gmm = GaussianMixture(canonical_vertices, pipeline.cfg.gmm_std)
@@ -148,6 +161,10 @@ def make_loss_fn(pipeline: Pipeline, canonical_vertices=None) -> Callable:
                 per_ray = x.reshape(x.shape[0], -1).mean(-1)
                 return torch.sum(per_ray * mask) / torch.clamp(torch.sum(mask), min=1.0)
         out = pipeline(batch, generator, train)
+        if pipeline.cfg.model_type == "warp":
+            # the supervised warp field: MSE against the dataset's warp
+            loss = _mean((out["warp"] - batch["warp"]) ** 2)
+            return loss, {"loss": loss, "loss_coarse": loss, "loss_fine": loss}
         rgb_truth = batch["rgb"]
         loss_c = _mean((out["rgb_coarse"] - rgb_truth) ** 2)
         loss_f = _mean((out["rgb_fine"] - rgb_truth) ** 2)
@@ -533,7 +550,7 @@ class Solver:
                 if n_real < bs:
                     idx = np.concatenate([idx, np.full(bs - n_real, idx[-1])])
                 if img_idx is not None:
-                    check_batch_images(self.pipeline.cfg, idx, img_idx)
+                    check_batch_images(self.pipeline.cfg, idx, img_idx, val_arrays)
                 mask = torch.zeros(bs, dtype=torch.float32, device=self.device)
                 mask[:n_real] = 1.0
                 aux = self.eval_step(self.gather(val_arrays, idx), mask)

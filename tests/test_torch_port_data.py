@@ -153,11 +153,37 @@ def test_load_dataset_and_gather_batch_match_jax(rng, tmp_path, model_type, with
 
 
 def test_loader_refuses_what_is_not_ported_and_a_miscounted_split(rng, tmp_path):
+    """smpl, warp, vertex_sphere and smpl_estimator load as JAX's loader loads
+    them (the depth / warp companions, vertex_sphere's samples and warps on a
+    small procedural human, the estimator's images); a split with a stray PNG
+    is still refused."""
+    from smpl_nerf_tpu.models import smpl as jax_smpl
+    from smpl_nerf_tpu_torch import config as port_config
+    from smpl_nerf_tpu_torch.models import smpl
+
     split = str(tmp_path / "train")
     _write_split(rng, split)
-    for model_type in ("smpl", "warp", "vertex_sphere", "smpl_estimator"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            datasets.load_dataset(split, model_type)
+    for i in range(3):
+        depth = rng.uniform(1, 3, (6, 6)).astype(np.float32)
+        depth[0] = 0.0                                       # misses
+        np.save(os.path.join(split, f"depth_{i:03d}.npy"), depth)
+        np.save(os.path.join(split, f"warp_{i:03d}.npy"), rng.randn(6, 6, 3).astype(np.float32))
+    argv = ["--config=/dev/null", "--number_coarse_samples=4", "--vertex_sphere_radius=0.2"]
+    jargs = jax_config.config_parser().parse_args(argv)
+    pargs = port_config.config_parser().parse_args(argv)
+    jargs._smpl_model = jax_smpl.procedural_human(3, 6)
+    pargs._smpl_model = smpl.procedural_human(3, 6)
+    fields = {"smpl": ("surface_samples", "warp", "depth"), "warp": ("surface_samples", "warp"),
+              "vertex_sphere": ("z_vals", "ray_samples", "sample_warps", "directions"),
+              "smpl_estimator": ("images",)}
+    for model_type, names in fields.items():
+        np.random.seed(1)
+        want = jax_datasets.load_dataset(split, model_type, jargs)
+        np.random.seed(1)
+        got = datasets.load_dataset(split, model_type, pargs, device="cpu")
+        for name in names:
+            np.testing.assert_allclose(getattr(got, name), getattr(want, name), atol=1e-5,
+                                       err_msg=f"{model_type} {name}")
     cv2.imwrite(os.path.join(split, "stray.png"), _image(rng, 6, 6, 3))
     with pytest.raises(ValueError, match="number of images"):
         datasets.load_dataset(split, "nerf")

@@ -235,14 +235,22 @@ def test_inference_gif_keeps_the_jax_frame_order(rng, tmp_path):
 
 
 def test_setup_from_run_dir_refuses_the_vertex_families(tmp_path):
-    """vertex_sphere (and smpl, warp, smpl_estimator) are refused by name; the
-    SMPL-driven families get the procedural human, as JAX's setup gives them."""
+    """No family is refused: vertex_sphere, like the SMPL-driven families, gets
+    the procedural human, as JAX's setup gives it; smpl and warp set up without
+    one; smpl_estimator sets up (as in JAX) but has no render pipeline to
+    render with."""
     run_dir = _jax_run(tmp_path, "nerf")
     assert inference.setup_from_run_dir(run_dir).model_type == "nerf"
-    for model_type in ("vertex_sphere", "smpl", "warp", "smpl_estimator"):
-        with pytest.raises(NotImplementedError, match=f"{model_type!r} is not ported yet"):
-            inference.setup_from_run_dir(run_dir, model_type)
-    for model_type in ("dummy_dynamic", "image_wise_dynamic", "append_vertex_locations_to_nerf"):
+    for model_type in ("smpl", "warp", "smpl_estimator"):
+        args = inference.setup_from_run_dir(run_dir, model_type)
+        _, jextras, _ = jax_inference.setup_from_run_dir(run_dir, model_type)
+        assert args.model_type == model_type and jextras == {}
+        assert getattr(args, "_smpl_model", None) is None
+    with pytest.raises(ValueError, match="no render pipeline"):
+        inference.render_dataset(inference.setup_from_run_dir(run_dir, "smpl_estimator"),
+                                 run_dir, None, device="cpu")
+    for model_type in ("vertex_sphere", "dummy_dynamic", "image_wise_dynamic",
+                       "append_vertex_locations_to_nerf"):
         args = inference.setup_from_run_dir(run_dir, model_type)
         _, jextras, _ = jax_inference.setup_from_run_dir(run_dir, model_type)
         assert args._smpl_model.num_vertices == jextras["num_vertices"] == 3120

@@ -183,11 +183,22 @@ def test_auto_fused_mode_follows_the_jax_resolver():
 
 
 def test_unported_model_types_and_modes_raise():
+    """Every model type builds (smpl and warp their nets and warp field,
+    vertex_sphere its pipeline; smpl_estimator has no pipeline); --siren and
+    --grid_encoding are still refused."""
+    args = port_config.config_parser().parse_args(_argv("warp"))
+    models, encoders = factory.build_models_and_params(args, device="cpu")
+    assert set(models) == {"model_coarse", "model_fine", "model_warp_field"}
     args = port_config.config_parser().parse_args(_argv("smpl"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        factory.build_models_and_params(args, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pipelines.build_pipeline(pipelines.RenderConfig(model_type="vertex_sphere"), {}, {})
+    models, encoders = factory.build_models_and_params(args, device="cpu")
+    pipe = pipelines.build_pipeline(pipelines.RenderConfig.from_args(args), models, encoders)
+    assert not pipe.cfg.has_fine
+    assert pipelines.build_pipeline(pipelines.RenderConfig(model_type="vertex_sphere"), models,
+                                    encoders).cfg.model_type == "vertex_sphere"
+    with pytest.raises(ValueError, match="no render pipeline"):
+        pipelines.build_pipeline(pipelines.RenderConfig(model_type="smpl_estimator"), {}, {})
+    with pytest.raises(ValueError, match="unknown model_type"):
+        pipelines.build_pipeline(pipelines.RenderConfig(model_type="no_such_family"), {}, {})
     args = port_config.config_parser().parse_args(_argv(extra=("--siren=1",)))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         factory.build_models_and_params(args, device="cpu")
