@@ -5,7 +5,10 @@
 
 Needs one CUDA card, nvcc (PATH, $CUDA_HOME/bin or /usr/local/cuda/bin) and
 the repository checkout around this file. Without a card, or outside the
-checkout, it exits non-zero before printing any result. Phases, each
+checkout, it exits non-zero before printing any result. Every training run
+passes --number_validation_images=0 except phase 8b's logging run: where
+tensorboard imports, `cli.train.train` logs through a SummaryWriter, and its
+per-epoch rerenders would add launches to the counts. Phases, each
 unguarded, so that any failure exits non-zero:
 
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -20,7 +23,9 @@ unguarded, so that any failure exits non-zero:
      the event time, which includes the wrapper's host time): A (sample_pdf), B
      (fused v2 forward, at 131,072 and 393,216 rows: the coarse and the fine
      call of a 2048-ray batch), D (fused v1 forward, the configs/config.txt
-     net with its 621-wide pose prefix, at 131,072 and 262,144 rows), C (fused
+     net with its 621-wide pose prefix, at 131,072 and 262,144 rows, and at
+     131,072 rows at in_dim 148 and 84: the append_vertex_locations_to_nerf
+     and the prefix-free vertex_sphere nets), C (fused
      v2 backward, seeded cotangent, at 131,072 and 393,216 rows, run twice to
      hold its determinism, with its workspace's peak bytes), E
      (fused expert tiles: seeded sorted-tile plans with padding slots and empty
@@ -69,6 +74,26 @@ unguarded, so that any failure exits non-zero:
      training run and its val split at --inf_fast 0, 1 and 2, each with its
      launch counts (one grid bake per val view at 2), scores.json (mse, psnr,
      ssim, rlpips), the PNGs and walking.gif;
+ 8a. the net variants: `cli.train.train` with --siren 1 on configs/arm_angles.txt
+     (8x256, skip 4, 64 + 128 samples, bf16) and with --grid_encoding 1 on
+     configs/config.txt with --run_fine=1 (append_smpl_params, 621-wide pose
+     prefix; levels 8/16/32/64, F=4, W=64, 3 layers) on phase 7's dataset:
+     NET_STEPS steps through the kernel path (--use_pallas=1: kernel A in the
+     fine pass; these nets run their own forward) and the plain path
+     (--use_pallas=0) from one seed, first losses within LOSS_REL, launch
+     counts, bytes per net, an explicit --use_fused_mlp=2 refused naming the
+     flag, ms per step in turns, one profiled step; then phase 4's 2-view
+     128x128 render through both paths on seeded weights (grid features drawn
+     from U(-1, 1)) and one profiled kernel-path render, and for
+     the grid run --fast 1 and --fast 2 (launch counts) and --fast 1
+     --cap_fraction 1 against the full render;
+ 8b. the training flags, arm_angles.txt, 2 steps each: --check_nans 1 on finite
+     weights trains; from a copy of that run with a NaN in one fine-net
+     weight (--load_run) it raises naming that weight; --profile_dir writes
+     a Chrome trace that names kernel A (its size printed); a recording
+     writer with --number_validation_images 2 gets the scalars, the rerender
+     grid (2 x 3 panels of 64x64), the warp cloud and vedo_data, with the
+     rerenders' launches counted;
   9. the SMPL-driven families: configs/config.txt runs at full width (8x256
      nets, 64 coarse samples, bf16, sigma noise 1, the 3,120-vertex procedural
      human) on phase 7's dataset, whose transforms.json carries the poses and
@@ -100,13 +125,22 @@ unguarded, so that any failure exits non-zero:
      the card, the kernel path (auto: B and C on the coarse net) and the plain
      path from one seed (launch counts, first losses), inference_torch on the
      val split, the val views through the kernel path and through
-     --use_fused_mlp=1 (kernel D at the prefix-free width 90) against the
+     --use_fused_mlp=1 (kernel D at the prefix-free width 84) against the
      plain path on the same weights (coarse sigma bias raised by
      CULL_FINE_SIGMA_BIAS), ms per step and per 128x128 view in turns, one
      profiled step and render, and in-step the warp recompute's device ms.
      smpl_estimator trains EST_EPOCHS epochs on the smpl_nerf set's images
      (finite, falling loss; the run dir reloads with its BatchNorm
      statistics), seconds per epoch;
+ 10a. the Table-1 baselines: nearest neighbours (`cli.baselines`) on the
+     generated smpl_nerf set with its scores, files and seconds; the
+     silhouette fit of arm angle 0.6 (joint 41) on the procedural human from
+     a 64x64 silhouette the card ray traces, 150 Adam steps on the card
+     (recovered within 0.25, tests/test_baselines.py's case), its seconds;
+     create_dataset_torch --dataset_type=pix2pix on the same cameras and
+     poses, P2P_EPOCHS epochs of the bf16 U-Net (`cli.pix2pix`, seconds per
+     epoch, a falling loss), and `cli.evaluate_pix2pix` on the val views
+     (ground truth, NN renders, U-Net renders; the comparison GIF);
  11. distillation: `cli.distill.main` on that dataset's val split (2 views of
      64x64, one 4096-ray chunk each) with a seeded full-width `nerf` teacher
      (arm_angles.txt widths, --use_fused_mlp=2, so the teacher runs through
@@ -209,6 +243,15 @@ Tolerances, each with its reason:
     plain bf16 nets (flax's rounding) from the same weights and batch; cuBLAS
     and the CPU sum each bf16 product in float32 in their own orders, which
     can flip a bf16 rounding (2^-8 relative) of an activation: 1e-2 relative.
+  * --siren / --grid_encoding, kernel path against plain path: only the
+    fine samples differ (kernel A against its plain version, which can flip
+    a bin): the first step's loss within LOSS_REL, the renders under the
+    pixel bounds above; --fast 1 --cap_fraction 1 against the full render
+    under CAP1_MAX.
+  * the evaluation's scores against each baseline's own run: the NN renders
+    are training images, exact in 8 bits: PSNR within 0.1 dB; the U-Net's
+    own scores are taken on its float renders and the evaluation's on its
+    8-bit PNGs: PSNR within 0.5 dB.
   * the generated smpl image, card against CPU: the CPU test's bounds
     (tests/test_torch_port_generate.py), on the pixels whose closest face
     is the same on both devices (a ray through a triangle edge can take the
@@ -278,6 +321,9 @@ GEN_VIEWS, GEN_RES, GEN_VAL, VS_VIEW_RES = 10, 64, 2, 128    # generated sets; v
 SAMPLE_LOSS_REL = 1e-2          # smpl / warp first-step loss, card against the CPU (bf16 nets)
 GEN_HIT_SHARE, GEN_FACE_SHARE, GEN_T_ATOL = 0.995, 0.98, 1e-4   # the CPU test's bounds
 EST_EPOCHS, EST_BATCH = 3, 4
+NET_STEPS = 4                   # steps of each --siren / --grid_encoding / flag run
+FIT_STEPS, FIT_ANGLE, FIT_TOL = 150, 0.6, 0.25    # tests/test_baselines.py's arm-angle fit
+P2P_VIEWS, P2P_EPOCHS, P2P_BATCH = GEN_VIEWS, 5, 4
 
 
 def fail(msg: str) -> None:
@@ -465,12 +511,14 @@ def phase_fused_mlp_v1(device) -> dict:
     at the append render's two batch sizes: 131,072 rows (a coarse batch, the
     entry's headline) and 262,144 (a fine batch); and of the
     append_vertex_locations_to_nerf net, whose prefix is the 64-wide vertex
-    embedding (in_dim 148), at 131,072 rows (by_rows key "148:131072")."""
+    embedding (in_dim 148), and of the prefix-free vertex_sphere net (in_dim
+    84: 60 position and 24 direction columns), each at 131,072 rows (by_rows
+    keys "148:131072", "84:131072")."""
     from smpl_nerf_tpu_torch.ops import fused_mlp
 
     by_rows = {}
     for add, rows, key in ((621, MLP_ROWS, str(MLP_ROWS)), (621, 2 * MLP_ROWS, str(2 * MLP_ROWS)),
-                           (64, MLP_ROWS, f"148:{MLP_ROWS}")):
+                           (64, MLP_ROWS, f"148:{MLP_ROWS}"), (0, MLP_ROWS, f"84:{MLP_ROWS}")):
         net = full_width_net(device, seed=3, additional_input_dim=add)
         spec = fused_mlp.spec_from_model(net)
         flat = fused_mlp.flatten_params(spec, net)
@@ -727,7 +775,9 @@ def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=
                fine_sigma_bias: float = 0.0) -> tuple:
     """Two run dirs with the same seeded full-width weights: the kernel path
     (--use_fused_mlp, --use_pallas = kernel_flags) and the plain path (0, 0);
-    fine_sigma_bias is added to the fine net's sigma bias."""
+    fine_sigma_bias is added to the fine net's sigma bias. A grid net's
+    features are drawn from U(-1, 1) in place of its +-1e-4 init, so that its
+    density varies in space as a trained grid's does."""
     from smpl_nerf_tpu_torch import config
     from smpl_nerf_tpu_torch.training import checkpoints, factory
 
@@ -737,8 +787,12 @@ def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=
         args = parser.parse_args([f"--config={config_file}", f"--use_fused_mlp={fused}",
                                   f"--use_pallas={pallas}", f"--batchsize_val={BATCH}", *extra])
         models, _ = factory.build_models_and_params(args, seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(5)
         with torch.no_grad():
             models["model_fine"].sigma_out_layer.bias += fine_sigma_bias
+            for key in ("model_coarse", "model_fine"):
+                for grid in getattr(models[key], "grids", list)():
+                    grid.uniform_(-1.0, 1.0, generator=gen)
         run_dir = os.path.join(tmp, name)
         checkpoints.save_run(run_dir, {k: m.state_dict() for k, m in models.items()},
                              args, parser)
@@ -1272,7 +1326,8 @@ def train_run(tmp: str, dataset_dir: str, name: str, fused: int, pallas: int,
         [f"--config={ARM_ANGLES}", f"--dataset_dir={dataset_dir}", "--sigma_noise_std=0",
          f"--num_epochs={EPOCHS}", f"--steps_per_epoch={STEPS_PER_EPOCH}",
          f"--batchsize_val={BATCH}", "--seed=1", f"--use_fused_mlp={fused}",
-         f"--use_pallas={pallas}", f"--render_gif={int(gif)}"], log_dir=log_dir,
+         f"--use_pallas={pallas}", f"--render_gif={int(gif)}",
+         "--number_validation_images=0"], log_dir=log_dir,
         device=DEVICE)
     return solver, log_dir
 
@@ -1439,7 +1494,8 @@ def smpl_family_run(tmp: str, dataset_dir: str, name: str, model_type: str, fuse
         [f"--config={APPEND_CONFIG}", f"--model_type={model_type}",
          f"--dataset_dir={dataset_dir}", "--num_epochs=1", f"--steps_per_epoch={steps}",
          f"--batchsize_val={BATCH}", "--seed=1", f"--use_fused_mlp={fused}",
-         f"--use_pallas={pallas}", *extra], log_dir=log_dir, device=DEVICE)
+         f"--use_pallas={pallas}", "--number_validation_images=0", *extra], log_dir=log_dir,
+        device=DEVICE)
     return solver, log_dir
 
 
@@ -1736,7 +1792,7 @@ def sample_run(tmp: str, dataset_dir: str, name: str, model_type: str, fused: in
         [f"--config={APPEND_CONFIG}", f"--model_type={model_type}",
          f"--dataset_dir={dataset_dir}", "--num_epochs=1", f"--steps_per_epoch={steps}",
          f"--batchsize_val={BATCH}", "--seed=1", f"--use_fused_mlp={fused}", "--use_pallas=0",
-         *extra], log_dir=log_dir, device=device or DEVICE)
+         "--number_validation_images=0", *extra], log_dir=log_dir, device=device or DEVICE)
     return solver, log_dir
 
 
@@ -2158,6 +2214,296 @@ def phase_distill(tmp: str, dataset_dir: str) -> tuple:
     return counts, device_ms, on_path
 
 
+class RecordingWriter:
+    """A SummaryWriter's logging calls, kept in memory."""
+
+    def __init__(self):
+        self.scalars, self.images, self.meshes = [], [], []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), step))
+
+    def add_image(self, tag, img, step, dataformats="HWC"):
+        self.images.append((tag, np.asarray(img), step, dataformats))
+
+    def add_mesh(self, tag, vertices=None, colors=None, global_step=None):
+        self.meshes.append((tag, np.asarray(vertices).shape, global_step))
+
+
+def net_run(tmp: str, dataset_dir: str, name: str, config_file: str, pallas: int, extra=(),
+            steps: int = NET_STEPS, fused: int = 0, writer=None):
+    """One epoch of `steps` steps of BATCH rays (seed 1, no sigma noise, no
+    post-training GIF, no per-epoch rerenders unless `extra` asks for them)
+    of a full-width config through `cli.train.train`, then its validation
+    pass."""
+    from smpl_nerf_tpu_torch.cli import train as train_cli
+
+    log_dir = os.path.join(tmp, name)
+    solver = train_cli.train(
+        [f"--config={config_file}", f"--dataset_dir={dataset_dir}", "--num_epochs=1",
+         f"--steps_per_epoch={steps}", f"--batchsize_val={BATCH}", "--seed=1",
+         "--sigma_noise_std=0", f"--use_fused_mlp={fused}", f"--use_pallas={pallas}",
+         "--render_gif=0", "--number_validation_images=0", *extra], log_dir=log_dir,
+        device=DEVICE, writer=writer)
+    return solver, log_dir
+
+
+def phase_net_variant(tmp: str, dataset_dir: str, what: str, config_file: str,
+                      extra: tuple) -> dict:
+    """--siren / --grid_encoding at the config's full width: NET_STEPS steps
+    through the kernel path (--use_pallas=1: kernel A in the fine pass; the
+    nets run their own forward) and the plain path from one seed (first
+    losses within LOSS_REL), an explicit --use_fused_mlp=2 refused, ms per
+    step in turns, the 2-view render through both paths (phase_render) and,
+    for a grid run, through --fast 1 (--cap_fraction 1 against the full
+    render) and --fast 2, each with its launch counts; one profiled
+    kernel-path step and render. Returns ({path: launch counts}, {path:
+    device ms by kernel})."""
+    from smpl_nerf_tpu_torch.data import datasets
+
+    val_batches = -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
+    paths = {}
+    zero_launch_counts()
+    solver, _ = net_run(tmp, dataset_dir, f"{what}_kernel", config_file, 1, extra)
+    counts = launch_counts()
+    print(f"{what}: cli.train {os.path.basename(config_file)} {' '.join(extra)} full width, "
+          f"kernel path (--use_pallas=1), {NET_STEPS} steps of {BATCH} rays + {val_batches} "
+          f"validation batches: launches {counts}")
+    check_counts(f"{what} training", counts, {"sample_pdf": NET_STEPS + val_batches})
+    paths[f"{what}_train"] = counts
+    plain_solver, _ = net_run(tmp, dataset_dir, f"{what}_plain", config_file, 0, extra)
+    kernel_loss, plain_loss = solver.history["step_loss"], plain_solver.history["step_loss"]
+    print(f"{what}: loss per step, kernel path: " + " ".join(f"{v:.5f}" for v in kernel_loss))
+    print(f"{what}: loss per step, plain path:  " + " ".join(f"{v:.5f}" for v in plain_loss))
+    for path, losses, sol in (("kernel", kernel_loss, solver), ("plain", plain_loss, plain_solver)):
+        check(len(losses) == NET_STEPS and bool(np.isfinite(losses).all())
+              and bool(np.isfinite(sol.history["val_loss"]).all()),
+              f"{what}: non-finite loss on the {path} path")
+    rel = abs(kernel_loss[0] - plain_loss[0]) / plain_loss[0]
+    print(f"{what}: first-step loss kernel {kernel_loss[0]:.6f} vs plain {plain_loss[0]:.6f}: "
+          f"relative difference {rel:.3e} (bound {LOSS_REL})")
+    check(rel <= LOSS_REL, f"{what}: kernel path and plain path first losses disagree")
+    net = solver.models["model_coarse"]
+    print(f"{what}: {type(net).__name__}, {sum(p.numel() for p in net.parameters()):,} "
+          f"parameters, {sum(p.numel() * p.element_size() for p in net.parameters()):,} "
+          "bytes per net (float32)")
+    try:
+        net_run(tmp, dataset_dir, f"{what}_fused", config_file, 1, extra + ("--use_fused_mlp=2",))
+    except ValueError as e:
+        check("--use_fused_mlp=2" in str(e), f"{what}: the refusal does not name the flag: {e}")
+        print(f"{what}: --use_fused_mlp=2 refused: {e}")
+    else:
+        fail(f"{what}: an explicit --use_fused_mlp=2 on a {type(net).__name__} ran")
+
+    ms = {"plain": [], "kernel": []}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        sol, _ = net_run(tmp, dataset_dir, f"{what}_{path}_timed", config_file,
+                         int(path == "kernel"), extra)
+        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+    print(f"{what}: ms per step of {BATCH} rays (host clock, synchronised, median without "
+          f"the first step; plain/kernel/kernel/plain): kernel path "
+          f"{statistics.mean(ms['kernel']):.1f} {ms['kernel']}, plain path "
+          f"{statistics.mean(ms['plain']):.1f} {ms['plain']}")
+    data = datasets.load_dataset(os.path.join(dataset_dir, "train"), solver.args.model_type)
+    batch = solver.gather(solver.device_arrays(data, solver.args.model_type), np.arange(BATCH))
+    solver.train_step(batch, solver.generator)
+    device_ms = {f"{what}_train": profiled(f"one kernel-path {what} training step",
+                                           lambda: solver.train_step(batch, solver.generator))}
+
+    paths[f"{what}_render"], (kernel_run, _) = phase_render(
+        tmp, what, config_file, (0, 1), extra,
+        {"sample_pdf": 1, "fused_mlp_v2_fwd": 0, "fused_mlp_fwd": 0, "fused_mlp_v2_bwd": 0})
+    out = os.path.join(tmp, "views.npy")
+    device_ms[f"{what}_render"] = profiled(f"kernel-path {what} render of {VIEWS} views",
+                                           lambda: render(kernel_run, out))
+    if not what.startswith("grid"):
+        return paths, device_ms
+    full, _ = render(kernel_run, out)
+    for fast in ("1", "2"):
+        zero_launch_counts()
+        views, sec = render(kernel_run, out, extra=("--fast", fast))
+        counts = launch_counts()
+        check(views.shape == full.shape and bool(np.isfinite(views).all()),
+              f"{what}: bad --fast {fast} render")
+        check(counts["sample_pdf"] > 0, f"{what}: --fast {fast} launched no sample_pdf")
+        check_counts(f"{what} --fast {fast}", counts, {"sample_pdf": counts["sample_pdf"]})
+        paths[f"{what}_fast{fast}"] = counts
+        print(f"{what}: render_path --fast {fast} on the kernel path: launches {counts}, "
+              f"{1e3 * sec / VIEWS:.1f} ms per view (host clock, first call), mean|render - "
+              f"full| {np.abs(views - full).mean():.4e}")
+    cap1, _ = render(kernel_run, out, extra=("--fast", "1", "--cap_fraction", "1"))
+    diff = float(np.abs(cap1 - full).max())
+    print(f"{what}: --fast 1 --cap_fraction 1 vs the full render: max|diff| {diff:.3e} "
+          f"(bound {CAP1_MAX})")
+    check(diff <= CAP1_MAX, f"{what}: --fast 1 at full cap differs from the full render")
+    return paths, device_ms
+
+
+def phase_train_flags(tmp: str, dataset_dir: str) -> dict:
+    """--check_nans 1 on finite weights (must train), then from a copy of that
+    run with a NaN written into one fine-net weight (must raise naming it);
+    --profile_dir (a Chrome trace that names kernel A); a run with a
+    recording writer and --number_validation_images 2 (scalars, the rerender
+    grid's shape, the warp cloud, vedo_data). arm_angles.txt at full width,
+    2 steps each; the kernel path (--use_fused_mlp=2 --use_pallas=1) except
+    the NaN runs, which keep the nets plain. Returns {path: launch counts}."""
+    paths = {}
+    val_batches = -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
+    zero_launch_counts()
+    sol, run_dir = net_run(tmp, dataset_dir, "nans_finite", ARM_ANGLES, 1, ("--check_nans=1",),
+                           steps=2)
+    paths["check_nans_train"] = launch_counts()
+    check(bool(np.isfinite(sol.history["step_loss"]).all()), "check_nans: a finite run failed")
+    poisoned = os.path.join(tmp, "nans_poisoned")
+    shutil.copytree(run_dir, poisoned)
+    sd = torch.load(os.path.join(poisoned, "model_fine.pt"), map_location="cpu")
+    sd["positional_net.0.weight"][0, 0] = float("nan")
+    torch.save(sd, os.path.join(poisoned, "model_fine.pt"))
+    try:
+        net_run(tmp, dataset_dir, "nans_raised", ARM_ANGLES, 1,
+                ("--check_nans=1", f"--load_run={poisoned}"), steps=2)
+    except RuntimeError as e:
+        print("check_nans: " + str(e).splitlines()[0] + f" ({len(str(e).splitlines()) - 1} "
+              "non-finite parameters listed)")
+        check("model_fine/positional_net.0.weight:" in str(e),
+              f"check_nans: the report does not name the poisoned weight: {e}")
+    else:
+        fail("check_nans: a NaN weight trained without raising")
+
+    prof_dir = os.path.join(tmp, "profile")
+    for attempt in range(3):      # a profiler session now and then sees no device events
+        zero_launch_counts()
+        net_run(tmp, dataset_dir, "profiled", ARM_ANGLES, 1, (f"--profile_dir={prof_dir}",),
+                steps=2, fused=2)
+        counts = launch_counts()
+        trace = os.path.join(prof_dir, "train_trace.json")
+        with open(trace) as fh:
+            names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+        if any("sample_pdf_kernel" in n for n in names):
+            break
+    else:
+        fail("profile: the trace names no sample_pdf_kernel in 3 runs")
+    paths["profile_train"] = counts
+    print(f"profile: --profile_dir trace of 2 steps + {val_batches} validation batches: "
+          f"{os.path.getsize(trace):,} bytes, {len(names)} distinct event names, port kernels "
+          + ", ".join(sorted({sym for _, syms in KERNEL_SYMBOLS for sym in syms
+                              if any(sym in n for n in names)}))
+          + f"; launches {counts} (attempt {attempt + 1})")
+
+    writer = RecordingWriter()
+    zero_launch_counts()
+    _, log_dir = net_run(tmp, dataset_dir, "logged", ARM_ANGLES, 1,
+                         ("--number_validation_images=2", "--mesh_epochs=0"), steps=2,
+                         fused=2, writer=writer)
+    counts = launch_counts()
+    paths["logging_train"] = counts
+    (tag, grid, step, fmt), = writer.images
+    print(f"logging: scalars {[t for t, _, _ in writer.scalars]}, image {tag} {grid.shape} "
+          f"{grid.dtype} at step {step}, meshes {writer.meshes}, launches {counts}")
+    check(grid.shape == (2 * TRAIN_RES, 3 * TRAIN_RES, 3) and fmt == "HWC"
+          and bool(np.isfinite(grid).all()) and 0.0 <= grid.min() and grid.max() <= 1.0,
+          "logging: bad rerender grid")
+    check([t for t, _, _ in writer.scalars] == ["loss/train", "loss/val", "perf/rays_per_sec"],
+          "logging: wrong scalars")
+    check(len(writer.meshes) == 1, "logging: no warp cloud at --mesh_epochs 0")
+    dump = np.load(os.path.join(log_dir, "vedo_data", "epoch_0_img_0.npz"))
+    check(sorted(dump.files) == ["densities", "density_samples"]
+          and dump["density_samples"].shape == (dump["densities"].shape[0], 3)
+          and bool(np.isfinite(dump["densities"]).all()), "logging: bad vedo_data")
+    # per step A, 2 B, 2 C; per validation batch and per rerendered image (one
+    # 4096-ray batch each) A, 2 B
+    renders = val_batches + 2
+    check_counts("logging", counts, {"sample_pdf": 2 + renders,
+                                     "fused_mlp_v2_fwd": 2 * (2 + renders),
+                                     "fused_mlp_v2_bwd": 4})
+    return paths
+
+
+def phase_baselines(tmp: str, gen_dirs: dict) -> dict:
+    """Table 1's baselines on the card: nearest neighbours on the generated
+    smpl_nerf set (run_baselines_torch's cli.baselines), the silhouette fit
+    of one arm angle on the procedural human from a silhouette the card ray
+    traces (tests/test_baselines.py's case), and the pix2pix stand-in:
+    create_dataset_torch --dataset_type=pix2pix on the smpl_nerf set's
+    cameras and poses, P2P_EPOCHS epochs of the U-Net (cli.pix2pix), then
+    cli.evaluate_pix2pix on the val views (ground truth, the NN renders, the
+    U-Net's renders). No kernel runs here. Returns {path: launch counts}."""
+    from smpl_nerf_tpu_torch.baselines.silhouette_pose_fit import fit_pose_to_silhouette
+    from smpl_nerf_tpu_torch.cli import baselines as baselines_cli
+    from smpl_nerf_tpu_torch.cli import dataset as dataset_cli
+    from smpl_nerf_tpu_torch.cli import evaluate_pix2pix, pix2pix
+    from smpl_nerf_tpu_torch.core import cameras
+    from smpl_nerf_tpu_torch.models import smpl as smpl_mod
+    from smpl_nerf_tpu_torch.render import raytrace
+
+    zero_launch_counts()
+    nn_dir = os.path.join(tmp, "nn_baseline")
+    t0 = time.perf_counter()
+    renders, scores = baselines_cli.main(["--dataset_dir", gen_dirs["smpl_nerf"], "--out",
+                                          nn_dir, "--device", DEVICE])
+    print(f"baselines: nearest neighbours on the {GEN_VIEWS}-view {GEN_RES}^2 smpl_nerf set, "
+          f"{len(renders)} val views in {time.perf_counter() - t0:.2f} s: "
+          + " ".join(f"{k} {v:.5f}" for k, v in scores.items()))
+    check(renders.shape == (GEN_VAL, GEN_RES, GEN_RES, 3), "baselines: bad NN renders")
+    for key in ("mse", "psnr", "ssim", "rlpips"):
+        check(key in scores and bool(np.isfinite(scores[key])), f"baselines: no NN {key}")
+
+    model = smpl_mod.procedural_human(rings=3, segments=6)
+    gt_pose = np.zeros(69, np.float32)
+    gt_pose[41] = FIT_ANGLE
+    cam = cameras.get_sphere_pose(0.0, 0.0, 2.4)
+    fov = np.pi / 3
+    verts = smpl_mod.smpl_forward(model, torch.zeros(10, device=DEVICE),
+                                  torch.as_tensor(gt_pose, device=DEVICE))
+    img = raytrace.render_scene(verts.cpu().numpy(), model.faces, cam, GEN_RES, GEN_RES, fov,
+                                vertex_colors=model.vertex_colors, device=DEVICE)
+    mask = (img < 250).any(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose, losses = fit_pose_to_silhouette(model, mask, cam, fov, steps=FIT_STEPS, lr=0.03,
+                                          free_joints=np.array([41]), device=DEVICE)
+    fit_s = time.perf_counter() - t0
+    print(f"baselines: silhouette fit of joint 41 ({mask.sum()} silhouette pixels, "
+          f"{FIT_STEPS} Adam steps) on the card: {fit_s:.2f} s ({1e3 * fit_s / FIT_STEPS:.2f} "
+          f"ms per step), loss {losses[0]:.4f} -> {losses[-1]:.4f}, angle {pose[41]:.4f} "
+          f"(truth {FIT_ANGLE}, bound {FIT_TOL})")
+    check(losses[-1] < losses[0] and abs(pose[41] - FIT_ANGLE) < FIT_TOL,
+          "baselines: the silhouette fit did not recover the arm angle")
+
+    p2p_dir = os.path.join(tmp, "gen_pix2pix")
+    dataset_cli.main([f"--save_dir={p2p_dir}", "--dataset_type=pix2pix",
+                      f"--resolution={GEN_RES}", "--camera_path=circle",
+                      f"--number_steps={P2P_VIEWS}", f"--human_number_steps={P2P_VIEWS}",
+                      "--train_val_ratio=0.8", "--device", DEVICE])
+    p2p_out = os.path.join(tmp, "pix2pix_renders")
+    result = pix2pix.main(["--dataset_dir", p2p_dir, "--epochs", str(P2P_EPOCHS), "--batch",
+                           str(P2P_BATCH), "--out", p2p_out, "--device", DEVICE])
+    epoch_s = statistics.median(result["epoch_seconds"][1:])
+    print(f"baselines: pix2pix U-Net (bf16) {P2P_EPOCHS} epochs of batch {P2P_BATCH} on "
+          f"{P2P_VIEWS - GEN_VAL} train pairs {GEN_RES}^2: L1 per epoch "
+          + " ".join(f"{v:.5f}" for v in result["losses"])
+          + f"; {epoch_s:.4f} s per epoch (host clock, median without the first); "
+          + " ".join(f"{k} {v:.5f}" for k, v in result["scores"].items()))
+    check(bool(np.isfinite(result["losses"]).all()) and result["losses"][-1] < result["losses"][0],
+          "baselines: the U-Net's loss did not fall")
+    check(result["renders"].shape == (GEN_VAL, GEN_RES, GEN_RES, 3)
+          and bool(np.isfinite(result["renders"]).all()), "baselines: bad U-Net renders")
+    gif_path = os.path.join(tmp, "comparison.gif")
+    evaluated = evaluate_pix2pix.main(["--gt_dir", os.path.join(gen_dirs["smpl_nerf"], "val"),
+                                       "--nerf_dir", nn_dir, "--pix2pix_dir", p2p_out,
+                                       "--out", gif_path, "--device", DEVICE])
+    print(f"baselines: evaluate_pix2pix_torch on the {GEN_VAL} val views: {evaluated}")
+    check(abs(evaluated["smpl-nerf"]["psnr"] - scores["psnr"]) < 0.1,
+          "baselines: the evaluation's NN scores disagree with the NN run's")
+    check(abs(evaluated["pix2pix"]["psnr"] - result["scores"]["psnr"]) < 0.5,
+          "baselines: the evaluation's U-Net scores disagree with its run's")
+    check(gif_frames(gif_path) == (3 * GEN_RES, GEN_RES, GEN_VAL),
+          "baselines: bad comparison GIF")
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()), f"baselines: a kernel launched {counts}")
+    return {"baselines": counts}
+
+
 def phase_roofline() -> dict:
     """`cli.mlp_roofline.main`: part `chain` launches F, part `fusedmlp` at
     W=256 launches B, C and D. Returns the launch counts."""
@@ -2235,6 +2581,14 @@ def main() -> None:
         dataset_dir = make_dataset(tmp, smpl_runs[0])
         paths["train"], device_ms["train"], train_dir = phase_training(tmp, dataset_dir)
         paths["inference"] = phase_inference(tmp, dataset_dir, train_dir)
+        for what, config_file, extra in (("siren", ARM_ANGLES, ("--siren=1",)),
+                                         ("grid", APPEND_CONFIG,
+                                          ("--run_fine=1", "--grid_encoding=1"))):
+            variant_paths, variant_ms = phase_net_variant(tmp, dataset_dir, what, config_file,
+                                                          extra)
+            paths.update(variant_paths)
+            device_ms.update(variant_ms)
+        paths.update(phase_train_flags(tmp, dataset_dir))
         smpl_paths, smpl_ms, dynamic_run = phase_smpl_family(
             tmp, dataset_dir, "dynamic", "dummy_dynamic", (-1, 1), (),
             {"fused_mlp_v2_fwd": 1, "fused_mlp_v2_bwd": 1}, {"fused_mlp_v2_fwd": 1})
@@ -2265,6 +2619,7 @@ def main() -> None:
             check(sum(paths[p][name] for p in vs_paths) > 0,
                   f"{name} was launched on no vertex_sphere path")
         paths["estimator"] = phase_estimator(tmp, gen_dirs["smpl_nerf"])
+        paths.update(phase_baselines(tmp, gen_dirs))
         paths["distill"], device_ms["distill"], on_path = phase_distill(tmp, dataset_dir)
         paths["roofline"] = phase_roofline()
     # kernel E's headline is the plan the distill path launched, in its serving type

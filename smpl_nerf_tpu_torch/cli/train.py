@@ -13,8 +13,19 @@ The SMPL-driven families and vertex_sphere get the SMPL model as the JAX
 package picks it (`factory.smpl_model_for`: the procedural human unless a
 licensed pkl is named) before the splits load, because vertex_sphere's
 loader needs it; --use_gmm_loss gets the canonical vertices of that model.
-A flag whose machinery is not ported (`UNPORTED_FLAGS`) raises when it is set
-to anything but its default, before any data is loaded.
+A flag whose machinery is not ported (`UNPORTED_FLAGS`: the parallel layer's)
+raises when it is set to anything but its default, before any data is loaded.
+
+`writer`: where training logs its scalars and per-epoch rerenders
+(`Solver`). When the caller passes none, train() makes a SummaryWriter on the
+run dir if tensorboardX or torch.utils.tensorboard imports, else logs nothing,
+as the JAX package does (image_wise_dynamic gets the caller's writer only, as
+in JAX); a writer train() made is closed when it returns. `--check_nans 1`
+raises on a non-finite epoch loss with the non-finite parameters
+(`solver.nan_report`). `--profile_dir D` runs the solver's training under
+torch.profiler (CPU, and CUDA activity on the card) and writes
+D/train_trace.json, a Chrome trace; the JAX package writes a jax.profiler
+trace there instead.
 
 With `--render_gif` (on by default), a nerf, smpl_nerf or append run then
 re-renders its train + val images in creation order into
@@ -50,12 +61,11 @@ from smpl_nerf_tpu_torch.training.solver import Solver
 # flags the port accepts for config compatibility but does not act on yet:
 # what the JAX package does with each, and what lifts the guard
 UNPORTED_FLAGS = {
-    "check_nans": "the non-finite loss check and its parameter report",
     "tensor_parallel": "width-sharded nets",
     "mesh_shape": "a device mesh",
     "multihost": "multi-host runs",
-    "profile_dir": "a trace of the training steps",
 }
+TRACE_FILE = "train_trace.json"
 # the families whose run the post-training GIF step re-renders (JAX cli/train.py:132-141)
 GIF_FAMILIES = ("append_smpl_params", "append_to_nerf", "nerf", "smpl_nerf")
 
@@ -71,8 +81,38 @@ def _default_log_dir(args) -> str:
     return os.path.join("runs", f"{stamp}_{args.experiment_name}")
 
 
+def summary_writer(log_dir: str):
+    """A SummaryWriter on log_dir from tensorboardX or torch.utils.tensorboard,
+    or None when neither imports."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return None
+    return SummaryWriter(log_dir)
+
+
+def train_profiled(solver: Solver, train_data, val_data, profile_dir: str,
+                   device: torch.device) -> str:
+    """solver.train under torch.profiler; returns the Chrome trace's path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        solver.train(train_data, val_data)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    print("Profiler trace written to", path)
+    return path
+
+
 def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
-          device=DEFAULT_DEVICE):
+          device=DEFAULT_DEVICE, writer=None):
     """The trained Solver; for image_wise_dynamic what `train_image_wise`
     returns (the final state dicts and the per-epoch pose errors), for
     smpl_estimator what `train_estimator` returns (the final state dict and
@@ -98,7 +138,7 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
     if args.model_type == "image_wise_dynamic":
         from smpl_nerf_tpu_torch.training.image_wise import train_image_wise
         return train_image_wise(args, parser, train_data, val_data, extras, log_dir,
-                                device=dev)
+                                device=dev, writer=writer)
 
     models, encoders = build_models_and_params(args, seed=seed, device=dev, extras=extras)
     if args.load_run:
@@ -108,10 +148,23 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
         print("Models loaded from", args.load_run)
 
     os.makedirs(log_dir, exist_ok=True)
+    own_writer = writer is None
+    if own_writer:
+        writer = summary_writer(log_dir)
+    try:
+        return _train_models(args, parser, train_data, val_data, extras, models, encoders,
+                             log_dir, dev, writer)
+    finally:
+        if own_writer and writer is not None:
+            writer.close()
+
+
+def _train_models(args, parser, train_data, val_data, extras, models, encoders,
+                  log_dir: str, dev: torch.device, writer):
     if args.model_type == "smpl_estimator":
         # supervised CNN training has no render pipeline: routed before one is built
         from smpl_nerf_tpu_torch.training.estimator import train_estimator
-        return train_estimator(args, parser, train_data, val_data, models, log_dir)
+        return train_estimator(args, parser, train_data, val_data, models, log_dir, writer)
     cfg = RenderConfig.from_args(args)
     pipeline = build_pipeline(cfg, models, encoders, extras)
     canonical_vertices = None
@@ -120,10 +173,13 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
         canonical_vertices = smpl_mod.smpl_forward(
             smpl_model_for(args), extras["betas"], torch.zeros(69, device=dev))
     solver = Solver(pipeline, args, log_dir=log_dir, parser=parser,
-                    canonical_vertices=canonical_vertices)
+                    canonical_vertices=canonical_vertices, writer=writer)
     if args.load_run:
         solver.restore_train_state(args.load_run)
-    solver.train(train_data, val_data)
+    if args.profile_dir:
+        train_profiled(solver, train_data, val_data, args.profile_dir, dev)
+    else:
+        solver.train(train_data, val_data)
     checkpoints.save_run(log_dir, solver.run_state_dicts(), args, parser, args.dataset_dir)
     print("Run saved under", log_dir)
     if int(args.render_gif) and args.model_type in GIF_FAMILIES:

@@ -242,7 +242,9 @@ def config_parser() -> ConfigArgumentParser:
     parser.add_argument("--default_device", type=str, default="tpu",
                         help="kept for config compatibility; the port's entry points take "
                              "a device argument instead")
-    parser.add_argument("--siren", type=int, default=0)
+    parser.add_argument("--siren", type=int, default=0,
+                        help="1: both nets are SirenRenderRayNets (sin(30 x) trunk, "
+                             "SIREN init); they run their own forward, never a fused kernel")
     parser.add_argument("--load_run", type=str, default=None)
     parser.add_argument("--use_directional_input", type=int, default=1)
 
@@ -284,12 +286,11 @@ def config_parser() -> ConfigArgumentParser:
     parser.add_argument("--grid_bound", type=float, default=1.6,
                         help="grid covers [-bound, bound]^3 around the origin")
     parser.add_argument("--check_nans", type=int, default=0,
-                        help="not ported yet: training raises when it is set (the "
-                             "per-epoch finite check with a report of the "
-                             "non-finite parameters)")
+                        help="1: a non-finite epoch loss raises, with the NaN / Inf "
+                             "counts of every non-finite parameter")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported yet: training raises when it is set (a "
-                             "torch.profiler trace of the training steps)")
+                        help="write a torch.profiler Chrome trace of the training "
+                             "(train_trace.json) into this directory")
     parser.add_argument("--multihost", type=int, default=0,
                         help="not ported yet: training raises when it is set (the port "
                              "runs on one host)")

@@ -1,8 +1,9 @@
 """Camera path constructors (numpy copy of smpl_nerf_tpu/core/cameras.py).
 
 Euler-angle pose matrices and circle / sphere / circle-on-sphere camera paths;
-every constructor returns a stacked [N, 4, 4] float64 batch. Poses are tiny, so
-they are built on the host.
+every constructor returns a stacked [N, 4, 4] float64 batch; `get_xyzphitheta`
+reads position and Euler angles back from a pose (the nearest-neighbour
+baseline's features). Poses are tiny, so they are built on the host.
 """
 from __future__ import annotations
 
@@ -104,3 +105,14 @@ def get_circle_on_sphere_poses(number_steps: int, circle_radius: float,
         theta = circle_radius * np.sin(angle) + center_theta
         poses.append(get_sphere_pose(phi, theta, sphere_radius))
     return np.stack(poses), angles
+
+
+def get_xyzphitheta(pose: np.ndarray) -> np.ndarray:
+    """(x, y, z, -phi, theta, psi) of a pose matrix, angles in degrees: the
+    inverse of the extrinsic xyz Euler composition R = Rz(psi) Ry(theta) Rx(phi)."""
+    trans = pose[:3, 3]
+    rot = pose[:3, :3]
+    theta = np.degrees(np.arcsin(np.clip(-rot[2, 0], -1.0, 1.0)))
+    phi = np.degrees(np.arctan2(rot[2, 1], rot[2, 2]))
+    psi = np.degrees(np.arctan2(rot[1, 0], rot[0, 0]))
+    return np.concatenate((trans, [-phi, theta, psi]))

@@ -1,4 +1,5 @@
-"""The NeRF MLP (counterpart of smpl_nerf_tpu/models/render_ray_net.py:RenderRayNet).
+"""The NeRF MLP and its SIREN variant (counterpart of
+smpl_nerf_tpu/models/render_ray_net.py: RenderRayNet, SirenRenderRayNet).
 
 Layer names follow the reference torch module, so a reference-layout
 state_dict (`model_coarse.pt`) loads with `load_state_dict` unchanged:
@@ -17,8 +18,17 @@ state_dict (`model_coarse.pt`) loads with `load_state_dict` unchanged:
 
 `compute_dtype=torch.bfloat16` rounds where flax `nn.Dense(dtype=bfloat16)`
 does: inputs and weights to bf16, the product rounded to bf16, then the bf16
-bias added in bf16. Parameters stay float32. `SirenRenderRayNet` is not ported
-yet.
+bias added in bf16. Parameters stay float32.
+
+`SirenRenderRayNet` has the same layers and names; its trunk
+(positions_pose_input, positional_net.{i}) and directional_net.0 apply
+sin(omega_0 * x) where RenderRayNet applies ReLU, and its skips default to
+none. Its init is SIREN's (uniform +-1/fan_in on the first layer, +-sqrt(6 /
+fan_in) / omega_0 on the other sine layers and additional_linear_layer, zero
+biases); the heads (sigma_out_layer, directional_input, rgb_out_layer) keep
+the lecun-normal init. In bf16 the sine is taken of the layer's bf16 output
+and rounded to bf16, so the two packages can part by one bf16 rounding of
+sin(30 x) per activation.
 """
 from __future__ import annotations
 
@@ -35,16 +45,29 @@ def _linear(in_dim: int, out_dim: int, device) -> nn.Linear:
                               device="cpu" if device is None else device)
 
 
-def init_linear_(layer: nn.Linear, generator: Optional[torch.Generator]) -> None:
+def init_linear_(layer: nn.Module, generator: Optional[torch.Generator],
+                 fan_in: Optional[int] = None) -> None:
     """Flax's Dense init: lecun-normal kernel (clipped at 2 std), zero bias.
+    `fan_in` defaults to a Linear's (the weight's second dimension); a
+    convolution passes its own.
 
     Values are drawn on the CPU so a seed gives the same weights on every
     device.
     """
-    fan_in = layer.weight.shape[1]
+    fan_in = layer.weight.shape[1] if fan_in is None else fan_in
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     w = torch.empty(layer.weight.shape, dtype=torch.float32)
     w.normal_(0.0, 1.0, generator=generator).clamp_(-2.0, 2.0).mul_(std)
+    with torch.no_grad():
+        layer.weight.copy_(w)
+        layer.bias.zero_()
+
+
+def init_uniform_(layer: nn.Linear, bound: float,
+                  generator: Optional[torch.Generator]) -> None:
+    """Kernel uniform in [-bound, bound], zero bias (drawn on the CPU)."""
+    w = torch.empty(layer.weight.shape, dtype=torch.float32)
+    w.uniform_(-bound, bound, generator=generator)
     with torch.no_grad():
         layer.weight.copy_(w)
         layer.bias.zero_()
@@ -99,16 +122,49 @@ class RenderRayNet(nn.Module):
         positions_pose = x[..., :pos_dim].to(cdt)
         directions = x[..., x.shape[-1] - self.directions_dim:].to(cdt)
 
-        o = torch.relu(dense(self.positions_pose_input, positions_pose, cdt))
+        act = self.activation
+        o = act(dense(self.positions_pose_input, positions_pose, cdt))
         for i, layer in enumerate(self.positional_net):
             if i in self.skips:
                 o = torch.cat([o, positions_pose], -1)
-            o = torch.relu(dense(layer, o, cdt))
+            o = act(dense(layer, o, cdt))
         o = dense(self.additional_linear_layer, o, cdt)
         sigma = dense(self.sigma_out_layer, o, cdt)
         if self.use_directional_input:
             o = torch.cat([o, directions], -1)
         o = dense(self.directional_input, o, cdt)
-        o = torch.relu(dense(self.directional_net[0], o, cdt))
+        o = act(dense(self.directional_net[0], o, cdt))
         rgb = dense(self.rgb_out_layer, o, cdt)
         return torch.cat([rgb, sigma], -1).float()
+
+    def activation(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(x)
+
+
+class SirenRenderRayNet(RenderRayNet):
+    """RenderRayNet with sine activations and the SIREN init. The fused
+    kernels compute ReLU, so the net runner sends it through its plain
+    forward only."""
+
+    def __init__(self, n_layers: int = 8, width: int = 256, positions_dim: int = 60,
+                 directions_dim: int = 24, additional_input_dim: int = 0,
+                 skips: Sequence[int] = (), use_directional_input: bool = True,
+                 omega_0: float = 30.0, compute_dtype: torch.dtype = torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        self.omega_0 = float(omega_0)
+        super().__init__(n_layers, width, positions_dim, directions_dim,
+                         additional_input_dim, skips, use_directional_input, compute_dtype,
+                         device, generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        super().reset_parameters(generator)
+        # torch's weight is [out, in]: fan_in is its second dimension
+        first = self.positions_pose_input
+        init_uniform_(first, 1.0 / first.weight.shape[1], generator)
+        for layer in (*self.positional_net, self.additional_linear_layer,
+                      self.directional_net[0]):
+            init_uniform_(layer, (6.0 / layer.weight.shape[1]) ** 0.5 / self.omega_0,
+                          generator)
+
+    def activation(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sin(self.omega_0 * x)

@@ -36,7 +36,8 @@ Three families have a pipeline of their own (`FamilyPasses.smpl`, `.warp_only`,
     --images_per_batch K only the batch's K unique meshes are read), through
     the coarse net's runner (so kernels B and C, or D, on the card).
 
-The MLP runner owns the encoding step:
+The MLP runner owns the encoding step. A net that takes raw rows (GridNerf)
+gets [prefix || xyz || unit dir] and encodes them itself. For a RenderRayNet:
   * use_fused_mlp=0: PositionalEncoder + the RenderRayNet module,
   * use_fused_mlp=1: encode, then the fused v1 forward (ops/fused_mlp.py): the
     CUDA kernel on the card, its plain version on the CPU; takes any prefix,
@@ -46,6 +47,8 @@ The MLP runner owns the encoding step:
   * use_fused_mlp=-1 (auto): as JAX's auto picks on its accelerator, mode 2
     on CUDA for each net the v2 kernels take (prefix-free, bf16, W <= 256),
     else mode 0; always mode 0 on the CPU.
+A SIREN or grid net always runs its own forward: auto leaves it there, and an
+explicit --use_fused_mlp=1|2 raises (JAX silently runs such a net plain).
 smpl_estimator trains a CNN with no render pipeline (training/estimator.py).
 """
 from __future__ import annotations
@@ -59,6 +62,7 @@ from smpl_nerf_tpu_torch.config import MODEL_TYPES
 from smpl_nerf_tpu_torch.core.encoding import PositionalEncoder
 from smpl_nerf_tpu_torch.core.integrate import raw2outputs
 from smpl_nerf_tpu_torch.core.sampling import coarse_sampling, fine_sampling
+from smpl_nerf_tpu_torch.models import RenderRayNet
 from smpl_nerf_tpu_torch.models import smpl as smpl_mod
 from smpl_nerf_tpu_torch.ops import fused_mlp as fused_mod
 from smpl_nerf_tpu_torch.ops import fused_mlp_v2 as fused_v2
@@ -206,6 +210,17 @@ def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
     for key in ("model_coarse", "model_fine"):
         if key not in models:
             continue
+        if type(models[key]) is not RenderRayNet:
+            # the kernels compute RenderRayNet's ReLU trunk on encoded rows: a
+            # SIREN or grid net runs its own forward. JAX runs such a net plain
+            # whatever the flag says; an explicit fused mode is refused here.
+            if int(cfg.use_fused_mlp) > 0:
+                raise ValueError(
+                    f"--use_fused_mlp={cfg.use_fused_mlp}: the fused kernels run "
+                    f"RenderRayNet only, and {key} is a {type(models[key]).__name__}; "
+                    "use --use_fused_mlp=0 or -1")
+            modes[key] = 0
+            continue
         spec = fused_mod.spec_from_model(models[key])
         device = next(models[key].parameters()).device
         mode = int(cfg.use_fused_mlp)
@@ -235,6 +250,9 @@ def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
         net = models[key]
         mode = modes[key]
         lead = [] if prefix is None else [prefix[:, None, :]]
+        if getattr(net, "takes_raw", False):
+            raw = net(_rows(lead + [samples, dirs_unit], R, S))
+            return raw.reshape(R, S, raw.shape[-1])
         if mode >= 2:
             rows = _rows(lead + [samples, dirs_unit], R, S).contiguous()
             raw = fused_v2.fused_apply_raw(specs[key], net, rows)

@@ -17,9 +17,13 @@ flax Dense `kernel [in, out]` becomes torch `weight [out, in]`, a Conv
 BatchNorm's `scale` / `bias` become `weight` / `bias` and its `batch_stats`
 `mean` / `var` the buffers `running_mean` / `running_var`; the flax names
 `positional_net_{i}` / `directional_net_0` / `vertices_net_{i}` become
-`positional_net.{i}` / `directional_net.0` / `vertices_net.{i}`; a leaf that
-is no layer (`arm_angle_l`, `arm_angle_r`) and the `constants` collection
-(`goal_poses`, a buffer in the port) keep their names. The CNN estimator's
+`positional_net.{i}` / `directional_net.0` / `vertices_net.{i}` (a SIREN net
+has RenderRayNet's names), while GridNerf's Dense layers (`trunk_{i}`,
+`trunk_out`, `dir_0`) keep theirs; a leaf that is no layer (`arm_angle_l`,
+`arm_angle_r`, GridNerf's `grid_{res}` [res, res, res, F]) and the
+`constants` collection (`goal_poses`, a buffer in the port) keep their names.
+A flax ConvTranspose kernel needs its own conversion
+(`cli/pix2pix.state_dict_from_jax`). The CNN estimator's
 `fc1` rows stay in flax's NHWC flatten order, which the port's
 `SmplEstimator` flattens in. The estimator's run dir holds its BatchNorm
 statistics with its weights (`model_smpl_estimator.pt`).

@@ -23,9 +23,11 @@ from smpl_nerf_tpu_torch.training import checkpoints
 
 
 def train_estimator(args, parser, train_data, val_data, models: Dict[str, torch.nn.Module],
-                    log_dir: Optional[str] = None) -> Tuple[dict, dict]:
+                    log_dir: Optional[str] = None, writer=None) -> Tuple[dict, dict]:
     """({"smpl_estimator": state_dict}, history with per-epoch train_loss,
-    val_loss and seconds). Runs where the estimator's parameters lie."""
+    val_loss and seconds; each epoch's losses also go to `writer`, when
+    given, as loss/train and loss/val). Runs where the estimator's parameters
+    lie."""
     model = models["smpl_estimator"]
     device = next(model.parameters()).device
     joints = [int(j) for j in args.human_joints]
@@ -59,6 +61,9 @@ def train_estimator(args, parser, train_data, val_data, models: Dict[str, torch.
         history["val_loss"].append(vloss)
         history["seconds"].append(time.perf_counter() - t0)
         print(f"[estimator epoch {epoch}] train {np.mean(losses):.5f} val {vloss:.5f}")
+        if writer is not None:
+            writer.add_scalar("loss/train", float(np.mean(losses)), epoch)
+            writer.add_scalar("loss/val", vloss, epoch)
     final = {"smpl_estimator": {k: v.detach().clone() for k, v in model.state_dict().items()}}
     if log_dir:
         os.makedirs(log_dir, exist_ok=True)

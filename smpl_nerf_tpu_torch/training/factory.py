@@ -6,10 +6,12 @@ the coarse and fine nets, plus the warp field (smpl_nerf, warp), the
 estimators of the SMPL-driven families (dummy_dynamic, image_wise_dynamic,
 append_vertex_locations_to_nerf), the vertex embedder of
 append_vertex_locations_to_nerf, and the CNN `SmplEstimator` of
-smpl_estimator, sized to the dataset's images. `smpl_model_for` and
-`dataset_extras` give the SMPL-driven families and vertex_sphere the SMPL
-model and the per-dataset constants. SIREN nets and grid encoders are not
-ported yet.
+smpl_estimator, sized to the dataset's images. `--siren 1` builds both nets
+as `SirenRenderRayNet`s, `--grid_encoding 1` as `GridNerf`s (--grid_levels /
+features / width / depth / bound; the direction encoding has
+--number_frequencies_directional frequencies), as the JAX factory does.
+`smpl_model_for` and `dataset_extras` give the SMPL-driven families and
+vertex_sphere the SMPL model and the per-dataset constants.
 """
 from __future__ import annotations
 
@@ -24,13 +26,14 @@ from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.config import MODEL_TYPES
 from smpl_nerf_tpu_torch.core.encoding import PositionalEncoder
 from smpl_nerf_tpu_torch.models import RenderRayNet, WarpFieldNet
+from smpl_nerf_tpu_torch.models.grid_nerf import GridNerf
 from smpl_nerf_tpu_torch.models import smpl as smpl_mod
 from smpl_nerf_tpu_torch.models.dummy_estimators import (DummyImageWiseEstimator,
                                                           DummySmplEstimatorModel)
-from smpl_nerf_tpu_torch.models.render_ray_net import _linear, init_linear_
+from smpl_nerf_tpu_torch.models.render_ray_net import (SirenRenderRayNet, _linear,
+                                                      init_linear_)
 from smpl_nerf_tpu_torch.models.smpl_estimator import SmplEstimator
-from smpl_nerf_tpu_torch.pipelines import (SMPL_MODEL_FAMILIES, _not_ported,
-                                           build_encoders)
+from smpl_nerf_tpu_torch.pipelines import SMPL_MODEL_FAMILIES, build_encoders
 
 VERTEX_EMBEDDING_DIM = 64
 
@@ -100,10 +103,6 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE,
     extras = extras or {}
     if args.model_type not in MODEL_TYPES:
         raise ValueError(f"unknown model_type {args.model_type!r}")
-    if int(getattr(args, "siren", 0)):
-        raise _not_ported("--siren (SirenRenderRayNet)")
-    if int(getattr(args, "grid_encoding", 0) or 0):
-        raise _not_ported("--grid_encoding (GridNerf)")
     encoders = build_encoders(args)
     pos_dim = encoders["position"].output_dim * 3
     dir_dim = encoders["direction"].output_dim * 3
@@ -116,17 +115,27 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE,
     additional = {"append_to_nerf": human_pose_dim * 2,
                   "append_smpl_params": human_pose_dim * 69,
                   "append_vertex_locations_to_nerf": VERTEX_EMBEDDING_DIM}.get(args.model_type, 0)
-    common = dict(positions_dim=pos_dim, directions_dim=dir_dim,
-                  additional_input_dim=additional,
-                  use_directional_input=bool(int(args.use_directional_input)),
-                  compute_dtype=dtype, device=device, generator=generator)
-    models: Dict[str, torch.nn.Module] = {
-        "model_coarse": RenderRayNet(n_layers=int(args.netdepth), width=int(args.netwidth),
-                                     skips=tuple(int(s) for s in args.skips), **common),
-        "model_fine": RenderRayNet(n_layers=int(args.netdepth_fine),
+    models: Dict[str, torch.nn.Module] = {}
+    if int(getattr(args, "grid_encoding", 0) or 0):
+        grid_kw = dict(levels=tuple(int(r) for r in str(args.grid_levels).split(",")),
+                       features=int(args.grid_features), width=int(args.grid_width),
+                       n_layers=int(args.grid_depth),
+                       dir_freqs=int(args.number_frequencies_directional),
+                       additional_input_dim=additional, bound=float(args.grid_bound),
+                       compute_dtype=dtype, device=device, generator=generator)
+        models["model_coarse"] = GridNerf(**grid_kw)
+        models["model_fine"] = GridNerf(**grid_kw)
+    else:
+        cls = SirenRenderRayNet if int(getattr(args, "siren", 0)) else RenderRayNet
+        common = dict(positions_dim=pos_dim, directions_dim=dir_dim,
+                      additional_input_dim=additional,
+                      use_directional_input=bool(int(args.use_directional_input)),
+                      compute_dtype=dtype, device=device, generator=generator)
+        models["model_coarse"] = cls(n_layers=int(args.netdepth), width=int(args.netwidth),
+                                     skips=tuple(int(s) for s in args.skips), **common)
+        models["model_fine"] = cls(n_layers=int(args.netdepth_fine),
                                    width=int(args.netwidth_fine),
-                                   skips=tuple(int(s) for s in args.skips_fine), **common),
-    }
+                                   skips=tuple(int(s) for s in args.skips_fine), **common)
     if args.model_type in ("smpl_nerf", "warp"):
         warp_pos_dim = (encoders["position"].output_dim
                         if int(args.human_pose_encoding) else 1) * 3

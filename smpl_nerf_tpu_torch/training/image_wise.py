@@ -78,10 +78,11 @@ def _load_coarse(path: str) -> dict:
 
 
 def train_image_wise(args, parser, train_data, val_data, extras: dict,
-                     log_dir: Optional[str] = None, device="cuda"):
+                     log_dir: Optional[str] = None, device="cuda", writer=None):
     """Returns ({model name: state dict}, per-epoch pose errors); saves the run
     (model_coarse.pt, model_fine.pt, model_smpl_estimator.pt, config.txt) and
-    pose_errors.json under log_dir."""
+    pose_errors.json under log_dir. Each epoch's loss and pose error also go
+    to `writer`, when given, as loss/train and pose/error."""
     device = torch.device(device)
     smpl_model = extras["smpl_model"]
     betas = torch.as_tensor(extras["betas"], dtype=torch.float32, device=device).reshape(-1)
@@ -161,6 +162,9 @@ def train_image_wise(args, parser, train_data, val_data, extras: dict,
         pose_errors.append(float(pose_err))
         print(f"[image_wise epoch {epoch}] loss {np.mean(losses):.6f} pose_err {pose_err:.6f} "
               f"(arm angles {arm_l:.5f}, {arm_r:.5f})")
+        if writer is not None:
+            writer.add_scalar("loss/train", float(np.mean(losses)), epoch)
+            writer.add_scalar("pose/error", float(pose_err), epoch)
 
     final = {name: models[name].state_dict()
              for name in ("model_coarse", "model_fine", "smpl_estimator")}

@@ -25,8 +25,17 @@ in the table of the split they evaluate (`swap_pose_table`); in-step
 vertex_sphere batches carry their goal-mesh table whole ('_itable') and are
 guarded the same way. `warp` trains its warp field alone on MSE against the
 dataset's warp; Adam leaves the nets, which get no gradient, where they are.
-Not ported yet: per-epoch re-render logging, tensor/mesh/multi-host
-parallelism and --check_nans.
+
+--check_nans: an epoch whose mean train loss is not finite raises
+RuntimeError with the NaN / Inf count of every non-finite parameter
+(`nan_report`), or says that the parameters are still finite. With a
+`writer` (an object with add_scalar / add_image / add_mesh), every epoch logs
+loss/train, loss/val and perf/rays_per_sec, and re-renders the first
+--number_validation_images val images whole: the GT-vs-rerender grid (with
+the warp magnitude for the warp families), the warp point cloud at the
+--mesh_epochs fractions, and the first image's first batch of density
+samples as vedo_data (training/logging.py). Not ported yet: tensor / mesh /
+multi-host parallelism.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch
 from smpl_nerf_tpu_torch.core.gmm import GaussianMixture
 from smpl_nerf_tpu_torch.pipelines import DYNAMIC_FAMILIES, Pipeline, get_pose_table
 from smpl_nerf_tpu_torch.training import checkpoints
+from smpl_nerf_tpu_torch.training import logging as log_mod
 
 
 def mse2psnr(mse: float) -> float:
@@ -78,6 +88,23 @@ def foreground_split(rgb: np.ndarray, num_images: int, h: int, w: int,
               "--foreground_sample_ratio oversampling (uniform ray sampling).")
         return None
     return is_fg
+
+
+def nan_report(models: Dict[str, torch.nn.Module], name: str = "params") -> str:
+    """Per-parameter NaN / Inf counts, a line for each parameter that has
+    any (`{name}{model}/{parameter}: n NaN, m Inf of size`); empty when every
+    parameter is finite."""
+    lines = []
+    for model_name, model in models.items():
+        for key, p in model.named_parameters():
+            if not p.is_floating_point():
+                continue
+            n_nan = int(torch.isnan(p).sum())
+            n_inf = int(torch.isinf(p).sum())
+            if n_nan or n_inf:
+                lines.append(f"  {name}{model_name}/{key}: {n_nan} NaN, {n_inf} Inf "
+                             f"of {p.numel()}")
+    return "\n".join(lines)
 
 
 def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor) -> dict:
@@ -263,12 +290,14 @@ class Solver:
     """
 
     def __init__(self, pipeline: Pipeline, args, log_dir: Optional[str] = None,
-                 parser=None, frozen_nerf: bool = False, canonical_vertices=None):
+                 parser=None, frozen_nerf: bool = False, canonical_vertices=None,
+                 writer=None):
         self.pipeline = pipeline
         self.models = pipeline.models
         self.args = args
         self.parser = parser
         self.log_dir = log_dir
+        self.writer = writer
         self.device = next(self.models["model_coarse"].parameters()).device
         for model in self.models.values():
             model.requires_grad_(True)
@@ -485,6 +514,12 @@ class Solver:
                         self._validate(val_arrays, val_data.num_rays, epoch=self.global_step))
             self.history.setdefault("step_loss", []).extend(epoch_losses)
             train_loss = float(np.mean(epoch_losses))
+            if int(getattr(args, "check_nans", 0)) and not np.isfinite(train_loss):
+                report = nan_report(self.models)
+                raise RuntimeError(
+                    f"non-finite train loss {train_loss} at epoch {epoch}"
+                    + (f"; non-finite params:\n{report}" if report else
+                       " (params still finite - NaN originated in the loss)"))
             val_loss = self._validate(val_arrays, val_data.num_rays,
                                       epoch=self.epoch_offset + epoch,
                                       full=epoch == int(args.num_epochs) - 1)
@@ -492,9 +527,14 @@ class Solver:
             rays_per_sec = steps_per_epoch * bs / dt
             self.history["train_loss"].append(train_loss)
             self.history["val_loss"].append(val_loss)
+            self._log("loss/train", train_loss)
+            self._log("loss/val", val_loss)
+            self._log("perf/rays_per_sec", rays_per_sec)
             print(f"[epoch {self.epoch_offset + epoch}] train {train_loss:.5f} "
                   f"val {val_loss:.5f} psnr {mse2psnr(max(val_loss / 2, 1e-10)):.2f} "
                   f"({rays_per_sec:,.0f} rays/s)")
+            if self.writer is not None:
+                self._log_rerenders(val_arrays, val_data, epoch)
             if callback is not None:
                 callback(self, epoch)
             if self.log_dir:
@@ -557,3 +597,53 @@ class Solver:
                 total += float(aux["loss"]) * n_real
                 weight += n_real
         return total / weight if weight else float("nan")
+
+    def _log(self, tag: str, value: float) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, self.global_step)
+
+    @torch.no_grad()
+    def _log_rerenders(self, val_arrays, val_data, epoch: int) -> None:
+        """The first --number_validation_images val images rendered whole
+        (batches of at most 4096 rays, the last padded with its last ray):
+        the rerender grid, the warp cloud of image 0 at the --mesh_epochs
+        fractions, and the first batch's density samples of image 0 as
+        vedo_data, as the JAX solver logs them."""
+        n_img = min(int(self.args.number_validation_images), val_data.num_images)
+        if n_img <= 0:
+            return
+        hw = val_data.h * val_data.w
+        bs = min(hw, 4096)
+        mesh_epochs = {int(float(f) * int(self.args.num_epochs))
+                       for f in getattr(self.args, "mesh_epochs", []) or []}
+        warp_cloud = epoch in mesh_epochs
+        renders, gts, warps, densities, samples = [], [], [], [], []
+        with self._eval_weights(), swap_pose_table(self.models,
+                                                   getattr(val_data, "human_poses", None)):
+            for i in range(n_img):
+                rgb_img, warp_img = [], []
+                for lo in range(i * hw, (i + 1) * hw, bs):
+                    idx = np.arange(lo, min(lo + bs, (i + 1) * hw))
+                    take = len(idx)
+                    if take < bs:
+                        idx = np.concatenate([idx, np.full(bs - take, idx[-1])])
+                    out = self.pipeline(self.gather(val_arrays, idx), None, False)
+                    out = {k: out[k][:take].float().cpu().numpy()
+                           for k in ("rgb_fine", "densities", "ray_samples", "warp") if k in out}
+                    rgb_img.append(out["rgb_fine"])
+                    if "warp" in out:
+                        warp_img.append(np.linalg.norm(out["warp"], axis=-1).max(-1))
+                    if lo == i * hw and "densities" in out and "ray_samples" in out:
+                        densities.append(out["densities"])
+                        samples.append(out["ray_samples"])
+                        if warp_cloud and "warp" in out and i == 0:
+                            log_mod.tensorboard_warps(self.writer, self.global_step,
+                                                      out["ray_samples"], out["warp"])
+                renders.append(np.concatenate(rgb_img).reshape(val_data.h, val_data.w, 3))
+                gts.append(val_data.rgb[i * hw:(i + 1) * hw].reshape(val_data.h, val_data.w, 3))
+                if warp_img:
+                    warps.append(np.concatenate(warp_img).reshape(val_data.h, val_data.w))
+        log_mod.tensorboard_rerenders(self.writer, n_img, np.stack(renders), np.stack(gts),
+                                      self.global_step, np.stack(warps) if warps else None)
+        if self.log_dir and densities:
+            log_mod.vedo_data(self.log_dir, densities[0], samples[0], epoch=epoch)

@@ -255,8 +255,9 @@ def test_the_cli_routes_the_estimator_before_any_pipeline_and_its_run_reloads(
     final, history = train_cli.train(_argv(est_dir), log_dir=run_dir, device="cpu")
     assert "[estimator epoch 1]" in capsys.readouterr().out
     assert np.isfinite(history["train_loss"]).all() and len(history["val_loss"]) == 2
-    assert sorted(os.listdir(run_dir)) == ["config.txt", "create_dataset_config.txt",
-                                           "model_smpl_estimator.pt"]
+    # train() also logs to a SummaryWriter on the run dir where tensorboard imports
+    assert sorted(n for n in os.listdir(run_dir) if not n.startswith("events.out.")) == [
+        "config.txt", "create_dataset_config.txt", "model_smpl_estimator.pt"]
     loaded = estimator.load_estimator(run_dir)
     sd = loaded.state_dict()
     assert set(sd) == set(final["smpl_estimator"])

@@ -92,8 +92,7 @@ def test_train_saves_the_dataset_config_and_says_the_gif_step_is_skipped(
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("check_nans", "1"), ("mesh_shape", "8"), ("tensor_parallel", "1"),
-    ("mesh_shape", "4,2"), ("multihost", "1"), ("profile_dir", "trace")])
+    ("mesh_shape", "8"), ("tensor_parallel", "1"), ("mesh_shape", "4,2"), ("multihost", "1")])
 def test_an_unported_flag_raises_before_any_data_is_loaded(tmp_path, monkeypatch, flag, value):
     def no_loading(*args, **kwargs):
         raise AssertionError("a dataset was loaded before the flag was refused")
@@ -111,8 +110,7 @@ def test_the_unported_flags_at_their_defaults_pass_the_guard():
                               "--use_gmm_loss=1", "--tensor_parallel=0", "--mesh_shape=",
                               "--multihost=0"])
     train_cli._refuse_unported_flags(args, parser)
-    assert set(train_cli.UNPORTED_FLAGS) == {"check_nans", "tensor_parallel", "mesh_shape",
-                                             "multihost", "profile_dir"}
+    assert set(train_cli.UNPORTED_FLAGS) == {"tensor_parallel", "mesh_shape", "multihost"}
 
 
 @pytest.mark.parametrize("model_type", ["smpl", "warp", "vertex_sphere", "smpl_estimator"])

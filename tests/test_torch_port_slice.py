@@ -185,7 +185,7 @@ def test_auto_fused_mode_follows_the_jax_resolver():
 def test_unported_model_types_and_modes_raise():
     """Every model type builds (smpl and warp their nets and warp field,
     vertex_sphere its pipeline; smpl_estimator has no pipeline); --siren and
-    --grid_encoding are still refused."""
+    --grid_encoding build their nets, and refuse an explicit fused mode."""
     args = port_config.config_parser().parse_args(_argv("warp"))
     models, encoders = factory.build_models_and_params(args, device="cpu")
     assert set(models) == {"model_coarse", "model_fine", "model_warp_field"}
@@ -199,9 +199,16 @@ def test_unported_model_types_and_modes_raise():
         pipelines.build_pipeline(pipelines.RenderConfig(model_type="smpl_estimator"), {}, {})
     with pytest.raises(ValueError, match="unknown model_type"):
         pipelines.build_pipeline(pipelines.RenderConfig(model_type="no_such_family"), {}, {})
-    args = port_config.config_parser().parse_args(_argv(extra=("--siren=1",)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        factory.build_models_and_params(args, device="cpu")
+    from smpl_nerf_tpu_torch.models.grid_nerf import GridNerf
+    from smpl_nerf_tpu_torch.models.render_ray_net import SirenRenderRayNet
+
+    for flag, cls in (("--siren=1", SirenRenderRayNet), ("--grid_encoding=1", GridNerf)):
+        args = port_config.config_parser().parse_args(_argv(extra=(flag,)))
+        models, encoders = factory.build_models_and_params(args, device="cpu")
+        assert type(models["model_coarse"]) is cls and type(models["model_fine"]) is cls
+        args = port_config.config_parser().parse_args(_argv(use_fused_mlp=1, extra=(flag,)))
+        with pytest.raises(ValueError, match="the fused kernels run RenderRayNet only"):
+            pipelines.build_pipeline(pipelines.RenderConfig.from_args(args), models, encoders)
 
 
 # ------------------------------------------------------------ batched render
