@@ -37,7 +37,14 @@ unguarded, so that any failure exits non-zero:
      711 rays of a 2048-ray batch: K, K*64, K*128 and K*192 rows, none a
      multiple of a tile), under the same bounds, except that C's dX max is
      taken against the float64 gradient of the same rounded forward, on three
-     inputs, one of them the card test's case;
+     inputs, one of them the card test's case; then B and C on raw rows with a
+     conditioning prefix [prefix | xyz | dir] (phase_fused_prefix): the
+     config.txt net's 621-wide pose prefix at 131,072 rows and at ODD_K x 128
+     rows, the 64-wide vertex embedding and the 18 encoded joint columns at
+     131,072 rows, C's dX max on the prefix columns and on the xyz/dir
+     columns apart against the float64 gradient, C twice (bit for bit), with
+     event and device times, bounds and the plain versions' times (the
+     kernels line's "_prefix" entries);
   4. the smpl_nerf render: `cli/render_path` on a 2-view 128x128 circle of a
      full-width configs/arm_angles.txt run (seeded weights, --use_fused_mlp=2,
      --use_pallas=1, 2048-ray batches), with the kernels' launch counts set to
@@ -48,8 +55,8 @@ unguarded, so that any failure exits non-zero:
   5. the culled renders of the same configuration: seeded full-width runs
      whose config sets near/far to enclose the occupancy grid's box from a
      camera at radius 8 (CULL_RADIUS), where the box covers a third of each
-     view, so that the grid culls, and whose fine net's sigma bias is raised
-     by CULL_FINE_SIGMA_BIAS; `render_path --fast 1` (cap 0.25) and
+     view, so that the grid culls, and whose nets' sigma biases are raised
+     by CULL_FINE_SIGMA_BIAS and CULL_COARSE_SIGMA_BIAS; `render_path --fast 1` (cap 0.25) and
      `--fast 2` (the occupancy grid, budget derived from probe counts: below
      the batch, at an odd K), each with its launch counts per batch and per
      grid bake, kernel path against plain path ray by ray, `--fast 1
@@ -58,7 +65,10 @@ unguarded, so that any failure exits non-zero:
      one profiled kernel-path render of each;
   6. the append render and its culled renders: the same through a full-width
      configs/config.txt (append_smpl_params) run with --run_fine=1
-     --use_fused_mlp=1 --use_pallas=1, which goes through A and D;
+     --use_fused_mlp=1 --use_pallas=1, which goes through A and D; then
+     phase 4's render of such a run with --use_fused_mlp=2 --use_pallas=1
+     (A, and B on 627-float prefix rows; never D) against the plain path,
+     and one profiled render;
   7. training: a seeded arm_angles.txt teacher renders 8 train and 2 val views
      at 64x64 (one arm angle per view), written as transforms.json + PNGs;
      `cli.train.train` then runs 2 epochs of 8 steps (batch 2048, 64+128
@@ -74,6 +84,12 @@ unguarded, so that any failure exits non-zero:
      training run and its val split at --inf_fast 0, 1 and 2, each with its
      launch counts (one grid bake per val view at 2), scores.json (mse, psnr,
      ssim, rlpips), the PNGs and walking.gif;
+ 8c. the prefixed nets trained on raw rows: configs/config.txt with
+     --run_fine=1 (append_smpl_params, 621-wide prefix, 64 + 64 samples) for
+     phase 7's steps through --use_fused_mlp=2 --use_pallas=1 (A, B, C) and
+     the plain path from one seed: launch counts, finite and falling losses,
+     the losses per step within LOSS_REL, the run through render_path and
+     inference_torch (launch counts), ms per step in turns, a profiled step;
  8a. the net variants: `cli.train.train` with --siren 1 on configs/arm_angles.txt
      (8x256, skip 4, 64 + 128 samples, bf16) and with --grid_encoding 1 on
      configs/config.txt with --run_fine=1 (append_smpl_params, 621-wide pose
@@ -109,6 +125,11 @@ unguarded, so that any failure exits non-zero:
      turns, one profiled step and render, and the device ms of the step's
      LBS and (dummy_dynamic) vertex attention; dummy_dynamic again with
      --images_per_batch 2 (every gathered batch within 2 images); then
+     append_vertex_locations_to_nerf again with --use_fused_mlp=2 (A, and B
+     and C on rows whose prefix is the 64-wide vertex embedding), the same
+     checks, and the embedder's loss gradient, which reaches it only through
+     C's prefix columns of dX, held against B's and C's plain versions
+     (BWD_DW_REL) and against the plain path (LOSS_REL); then
      image_wise_dynamic for one epoch from the dummy_dynamic run's coarse
      net, frozen: the pose error printed and the arm angles moved;
  10. the generator and the families on its data: `create_dataset_torch`
@@ -239,6 +260,11 @@ Tolerances, each with its reason:
     the forward and in the gradients, from the same weights, batches and
     jitter: each of the first 8 steps' losses within 10 % of the other path's
     (the SMPL-driven families and vertex_sphere: the first step's).
+  * the vertex embedder's gradient under --use_fused_mlp=2 (phase 9): a sum
+    over every ray of the prefix columns of C's dX, like a dW: against the
+    same pipeline with B and C replaced by their plain versions (the same
+    roundings) ||kernel - plain|| <= BWD_DW_REL * ||plain||; against the
+    plain path (flax's roundings, as the losses) within LOSS_REL.
   * smpl and warp, the card's first-step loss against the CPU's: the same
     plain bf16 nets (flax's rounding) from the same weights and batch; cuBLAS
     and the CPU sum each bf16 product in float32 in their own orders, which
@@ -301,9 +327,15 @@ CULL_NEAR_FAR = (CULL_RADIUS - 3.5, CULL_RADIUS + 3.5)
 # before its last fine sample: that sample's interval is 1e10 long, so where
 # a ray still lets light through there, a density within rounding of 0 sets
 # the ray's colour apart between the two paths (an append ray at radius 8 did
-# without it); the coarse net, which --fast 1 picks by, keeps its seeded
-# weights
+# without it)
 CULL_FINE_SIGMA_BIAS = 4.0
+# the same for the coarse net, which --fast 1 picks by: with flax's lecun
+# draw (std sqrt(1 / fan_in)) a seeded coarse ray can reach its last sample
+# with most of its light (one kept 0.74 of it), and then its opacity is 0 or
+# 1 by the sign of a density within rounding of 0. +2 over the 64 samples of
+# 0.11 makes every ray opaque before its last sample (transmittance about
+# e^-14) and leaves the opacities apart below 1, so the budget still ranks
+CULL_COARSE_SIGMA_BIAS = 2.0
 ODD_K = 711          # an auto-cap budget of a 2048-ray batch: no multiple of a tile
 BWD_DX_MAX, BWD_DX_MEAN, BWD_DW_REL = 0.25, 5e-3, 3e-2
 TRAIN_VIEWS, VAL_VIEWS, TRAIN_RES = 8, 2, 64
@@ -324,6 +356,9 @@ EST_EPOCHS, EST_BATCH = 3, 4
 NET_STEPS = 4                   # steps of each --siren / --grid_encoding / flag run
 FIT_STEPS, FIT_ANGLE, FIT_TOL = 150, 0.6, 0.25    # tests/test_baselines.py's arm-angle fit
 P2P_VIEWS, P2P_EPOCHS, P2P_BATCH = GEN_VIEWS, 5, 4
+# the paths of the prefixed nets on raw rows (--use_fused_mlp=2): the prefix
+# rows of kernels B and C
+PREFIX_PATHS = ("append_v2", "append_vertex_v2")
 
 
 def fail(msg: str) -> None:
@@ -617,6 +652,122 @@ def phase_fused_bwd(device) -> dict:
             **by_rows[str(MLP_ROWS)], "library_ms": None, "by_rows": by_rows}
 
 
+def prefixed_raw_rows(device, seed: int, rows: int, add: int) -> torch.Tensor:
+    """[rows, add + 6] raw rows: a prefix in [-1, 1] (an encoded pose, an
+    embedding's scale), then `raw_rows`."""
+    g = torch.Generator(device=device).manual_seed(seed + 1000)
+    prefix = 2.0 * torch.rand(rows, add, generator=g, device=device) - 1.0
+    return torch.cat([prefix, raw_rows(device, seed, rows)], -1).contiguous()
+
+
+def phase_fused_prefix(device) -> tuple:
+    """Kernels B and C on raw rows with a conditioning prefix, against their
+    plain versions: the append_smpl_params nets of configs/config.txt (a
+    621-wide encoded pose prefix) at 131,072 rows and at a culled budget's
+    fine pass (ODD_K rays x 128 samples), append_vertex_locations_to_nerf's
+    64-wide embedding and append_to_nerf's 18 encoded joint columns at
+    131,072 rows. C's dX max is held against the float64 gradient of the same
+    rounded forward (`exact_backward_dx`), on the prefix columns and on the
+    xyz/dir columns apart; C runs twice, bit for bit. Returns the kernels
+    line's entries of B and C with prefix rows (headline: add 621 at 131,072
+    rows)."""
+    from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2
+
+    b_shapes, c_shapes = {}, {}
+    for add, rows, timed in ((621, MLP_ROWS, True), (621, ODD_K * 128, False),
+                             (64, MLP_ROWS, True), (18, MLP_ROWS, True)):
+        key = f"{add}:{rows}"
+        net = full_width_net(device, seed=20 + add, additional_input_dim=add)
+        spec = fused_mlp.spec_from_model(net)
+        flat = fused_mlp.flatten_params(spec, net)
+        n_params = sum(p.numel() for p in flat)
+        x = prefixed_raw_rows(device, seed=21, rows=rows, add=add)
+        gen = torch.Generator(device=device).manual_seed(22)
+        g = torch.randn(rows, 4, generator=gen, device=device) / rows
+        with torch.no_grad():
+            got = fused_mlp_v2.fused_forward_cuda(spec, net, x)
+            want = fused_mlp_v2.reference_forward_raw(spec, flat, x)
+        torch.cuda.synchronize()
+        print(f"kernel B fused_mlp_v2_fwd with a prefix: N={rows} add={add} (rows of "
+              f"{add + 6} floats) W={spec.width} layers={spec.n_layers} bf16:")
+        max_err, rel_err = forward_parity("fused v2 (prefix rows)", got, want)
+        del got, want
+        dflat, dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
+        again_flat, again_dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
+        want_flat, want_dx = fused_mlp_v2.reference_backward_raw(spec, flat, x, g)
+        exact = fused_mlp_v2.exact_backward_dx(spec, flat, x, g)
+        torch.cuda.synchronize()
+        same = torch.equal(dx, again_dx) and all(torch.equal(a, b)
+                                                 for a, b in zip(dflat, again_flat))
+        rels = [float((a - b).norm() / b.norm()) for a, b in zip(dflat, want_flat)]
+        dx_abs_err = float((dx.double() - exact).abs().max())
+        reading = {}
+        for part, cols in (("prefix", slice(0, add)), ("xyz_dir", slice(add, add + 6))):
+            scale_max = float(want_dx[:, cols].abs().max())
+            scale_mean = float(want_dx[:, cols].abs().mean())
+            to_exact = float((dx[:, cols].double() - exact[:, cols]).abs().max()) / scale_max
+            plain_exact = float((want_dx[:, cols].double() - exact[:, cols]).abs().max()) / scale_max
+            mean_rel = float((dx[:, cols] - want_dx[:, cols]).abs().mean()) / scale_mean
+            reading[part] = {"dx_max_to_exact": to_exact, "plain_dx_max_to_exact": plain_exact,
+                             "dx_mean_to_plain": mean_rel}
+            print(f"kernel C fused_mlp_v2_bwd with a prefix: N={rows} add={add}, dX {part} "
+                  f"columns: max|err| / max|plain dX| against the float64 gradient "
+                  f"{to_exact:.4f} (bound {BWD_DX_MAX}; the plain version's own "
+                  f"{plain_exact:.4f}), mean|err| rel to the plain version {mean_rel:.3e} "
+                  f"(bound {BWD_DX_MEAN})")
+            check(to_exact <= BWD_DX_MAX and mean_rel <= BWD_DX_MEAN,
+                  f"fused v2 backward kernel's dX {part} columns disagree (add {add}, N {rows})")
+        workspace = fused_mlp_v2.workspace_bytes(spec, rows)
+        print(f"  dW/db worst ||err||/||plain||={max(rels):.3e} over {len(rels)} tensors (bound "
+              f"{BWD_DW_REL}); two runs bit-identical: {same}; workspace {workspace} B")
+        check(all(bool(torch.isfinite(t).all()) for t in (dx, *dflat)) and dx.shape == x.shape,
+              f"fused v2 backward kernel gave non-finite or misshapen gradients (add {add})")
+        check(max(rels) <= BWD_DW_REL, f"fused v2 backward kernel's dW disagree (add {add})")
+        check(same, f"fused v2 backward kernel is not bit-identical with a prefix (add {add})")
+        del dflat, dx, again_flat, again_dx, want_flat, want_dx, exact
+        b_shapes[key] = {"max_abs_err": max_err, "rel_err": rel_err}
+        c_shapes[key] = {"max_abs_err": dx_abs_err,
+                         "dx": reading, "dw_rel_err": max(rels), "bit_identical": same,
+                         "workspace_bytes": workspace}
+        if not timed:
+            continue
+        flops = 2 * mlp_macs(spec) * rows
+        for shapes, what, fn, plain, reps, mult, io_floats in (
+                (b_shapes, "B", lambda: fused_mlp_v2.fused_forward_cuda(spec, net, x),
+                 lambda: fused_mlp_v2.reference_forward_raw(spec, flat, x), 20, 1, add + 6 + 4),
+                (c_shapes, "C", lambda: fused_mlp_v2.fused_backward_cuda(spec, net, x, g),
+                 lambda: fused_mlp_v2.reference_backward_raw(spec, flat, x, g), 5, 3,
+                 2 * (add + 6) + 4)):
+            with torch.no_grad():
+                ms = time_ms(fn)
+                plain_ms = time_ms(plain, reps=reps)
+            device_ms = kernel_device_ms("fused_mlp_v2_fwd" if what == "B" else "fused_mlp_v2_bwd",
+                                         fn, reps=5)
+            bytes_moved = rows * io_floats * 4 + n_params * (2 if what == "B" else 2 + 4)
+            ops_ms = 1e3 * mult * flops / PEAK_BF16_FLOPS
+            bytes_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+            print(f"  kernel {what} with a prefix, N={rows} add={add}: {ms:.4f} ms (events), "
+                  f"{device_ms:.4f} ms on the device (profiler), plain {plain_ms:.4f} ms, bound "
+                  f"by operations {ops_ms:.5f} ms ({mult * flops:.4g} FLOP; {mlp_macs(spec)} "
+                  f"MAC/sample), by bytes {bytes_ms:.5f} ms ({bytes_moved} B), "
+                  f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
+            shapes[key].update({"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                                "bound_ms": max(ops_ms, bytes_ms),
+                                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+    head = f"621:{MLP_ROWS}"
+    entries = []
+    for name, shapes, replaces in (("fused_mlp_v2_fwd", b_shapes, "128"),
+                                   ("fused_mlp_v2_bwd", c_shapes, "157")):
+        entries.append({"name": f"{name}_prefix", "counter": name, "route": "cuda",
+                        "source": f"smpl_nerf_tpu_torch/csrc/{name}.cu",
+                        "replaces": f"smpl_nerf_tpu/ops/fused_mlp_v2.py:{replaces}",
+                        "parity_ok": True,
+                        **{k: shapes[head][k] for k in ("max_abs_err", "ms", "device_ms",
+                                                         "plain_ms", "bound_ms", "bound_by")},
+                        "library_ms": None, "by_shape": shapes})
+    return tuple(entries)
+
+
 def expert_plan_inputs(device, seed: int, n_experts: int, touched: int, mean_count: float,
                        budget: int):
     """A seeded sorted-tile plan and its slot inputs: `touched` experts with
@@ -772,10 +923,10 @@ def zero_launch_counts() -> None:
 
 
 def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=(),
-               fine_sigma_bias: float = 0.0) -> tuple:
+               fine_sigma_bias: float = 0.0, coarse_sigma_bias: float = 0.0) -> tuple:
     """Two run dirs with the same seeded full-width weights: the kernel path
     (--use_fused_mlp, --use_pallas = kernel_flags) and the plain path (0, 0);
-    fine_sigma_bias is added to the fine net's sigma bias. A grid net's
+    fine_sigma_bias and coarse_sigma_bias are added to the nets' sigma biases. A grid net's
     features are drawn from U(-1, 1) in place of its +-1e-4 init, so that its
     density varies in space as a trained grid's does."""
     from smpl_nerf_tpu_torch import config
@@ -790,6 +941,7 @@ def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=
         gen = torch.Generator().manual_seed(5)
         with torch.no_grad():
             models["model_fine"].sigma_out_layer.bias += fine_sigma_bias
+            models["model_coarse"].sigma_out_layer.bias += coarse_sigma_bias
             for key in ("model_coarse", "model_fine"):
                 for grid in getattr(models[key], "grids", list)():
                     grid.uniform_(-1.0, 1.0, generator=gen)
@@ -1051,7 +1203,8 @@ def phase_culled(tmp: str, what: str, config_file: str, kernel_flags: tuple, ext
 
     near, far = CULL_NEAR_FAR
     runs = write_runs(tmp, config_file, f"{what}_culled", kernel_flags,
-                      (*extra, f"--near={near}", f"--far={far}"), CULL_FINE_SIGMA_BIAS)
+                      (*extra, f"--near={near}", f"--far={far}"), CULL_FINE_SIGMA_BIAS,
+                      CULL_COARSE_SIGMA_BIAS)
     kernel_run, plain_run = runs
     out = os.path.join(tmp, "views.npy")
     n_batches = -(-VIEWS * RES * RES // BATCH)
@@ -1400,6 +1553,170 @@ def phase_training(tmp: str, dataset_dir: str) -> tuple:
     device_ms = profiled("one kernel-path training step",
                          lambda: solver.train_step(batch, solver.generator))
     return counts, device_ms, kernel_dir
+
+
+def prefix_train_run(tmp: str, dataset_dir: str, name: str, fused: int, pallas: int):
+    """cli.train on configs/config.txt with --run_fine=1 (append_smpl_params:
+    the 621-wide encoded pose prefix on both nets, 64 + 64 samples), phase 7's
+    steps and seed."""
+    from smpl_nerf_tpu_torch.cli import train as train_cli
+
+    log_dir = os.path.join(tmp, name)
+    solver = train_cli.train(
+        [f"--config={APPEND_CONFIG}", "--run_fine=1", f"--dataset_dir={dataset_dir}",
+         "--sigma_noise_std=0", f"--num_epochs={EPOCHS}", f"--steps_per_epoch={STEPS_PER_EPOCH}",
+         f"--batchsize_val={BATCH}", "--seed=1", f"--use_fused_mlp={fused}",
+         f"--use_pallas={pallas}", "--render_gif=0", "--number_validation_images=0"],
+        log_dir=log_dir, device=DEVICE)
+    return solver, log_dir
+
+
+def phase_prefix_training(tmp: str, dataset_dir: str) -> tuple:
+    """append_smpl_params trained through kernels A, B and C (--use_fused_mlp=2
+    --use_pallas=1: the prefixed nets on raw rows) and through the plain path
+    from one seed: launch counts, finite and falling losses, the two paths'
+    losses per step, the run rendered through render_path and scored by
+    inference_torch (launch counts of each), ms per step in turns and one
+    profiled step. Returns ({path: launch counts}, device ms by kernel)."""
+    from smpl_nerf_tpu_torch.cli import inference
+    from smpl_nerf_tpu_torch.data import datasets
+
+    steps = EPOCHS * STEPS_PER_EPOCH
+    val_batches = EPOCHS * -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
+    paths = {}
+    zero_launch_counts()
+    solver, kernel_dir = prefix_train_run(tmp, dataset_dir, "append_v2_kernel", 2, 1)
+    counts = launch_counts()
+    print(f"append_v2: cli.train append_smpl_params configs/config.txt --run_fine=1 full width "
+          f"(621-wide prefix), kernel path --use_fused_mlp=2 --use_pallas=1, {steps} steps of "
+          f"{BATCH} rays + {val_batches} validation batches: launches {counts}")
+    # per step 1 x A, 2 x B, 2 x C (coarse and fine net); per validation batch 1 x A, 2 x B
+    check_counts("append_v2 training", counts,
+                 {"sample_pdf": steps + val_batches, "fused_mlp_v2_fwd": 2 * (steps + val_batches),
+                  "fused_mlp_v2_bwd": 2 * steps})
+    paths["append_v2_train"] = counts
+    plain_solver, _ = prefix_train_run(tmp, dataset_dir, "append_v2_plain", 0, 0)
+    kernel_loss, plain_loss = solver.history["step_loss"], plain_solver.history["step_loss"]
+    print("append_v2: loss per step, kernel path: " + " ".join(f"{v:.5f}" for v in kernel_loss))
+    print("append_v2: loss per step, plain path:  " + " ".join(f"{v:.5f}" for v in plain_loss))
+    for what, losses, sol in (("kernel", kernel_loss, solver), ("plain", plain_loss, plain_solver)):
+        check(len(losses) == steps and bool(np.isfinite(losses).all())
+              and bool(np.isfinite(sol.history["val_loss"]).all()),
+              f"append_v2: non-finite loss on the {what} path")
+        check(np.mean(losses[-4:]) < losses[0],
+              f"append_v2: the {what} path's loss did not fall ({losses[0]} -> {losses[-4:]})")
+    rel = max(abs(k - q) / q for k, q in zip(kernel_loss[:LOSS_STEPS], plain_loss[:LOSS_STEPS]))
+    print(f"append_v2: kernel vs plain loss over the first {LOSS_STEPS} steps: max relative "
+          f"difference {rel:.3e} (bound {LOSS_REL})")
+    check(rel <= LOSS_REL, "append_v2: kernel path and plain path losses disagree")
+
+    zero_launch_counts()
+    view, _ = render(kernel_dir, os.path.join(tmp, "append_v2_trained.npy"), views=1,
+                     res=TRAIN_RES)
+    counts = launch_counts()
+    render_batches = -(-TRAIN_RES * TRAIN_RES // BATCH)
+    print(f"append_v2: render_path of the trained run, 1 view {TRAIN_RES}x{TRAIN_RES}: "
+          f"launches {counts}")
+    check(view.shape == (1, TRAIN_RES, TRAIN_RES, 3) and bool(np.isfinite(view).all()),
+          "append_v2: the saved run does not render")
+    check_counts("append_v2 render_path", counts,
+                 {"sample_pdf": render_batches, "fused_mlp_v2_fwd": 2 * render_batches})
+    paths["append_v2_trained_render"] = counts
+
+    zero_launch_counts()
+    save_dir = os.path.join(tmp, "append_v2_inference")
+    per_split = -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
+    scores = inference.inference([
+        f"--inf_run_dir={kernel_dir}", f"--inf_ground_truth_dir={os.path.join(dataset_dir, 'val')}",
+        f"--inf_save_dir={save_dir}", f"--inf_batchsize={BATCH}", f"--device={DEVICE}"])
+    counts = launch_counts()
+    print(f"append_v2: inference_torch on the run, {VAL_VIEWS} val views: launches {counts}; "
+          + " ".join(f"{k} {v:.5f}" for k, v in scores.items()))
+    check_counts("append_v2 inference", counts,
+                 {"sample_pdf": per_split, "fused_mlp_v2_fwd": 2 * per_split})
+    with open(os.path.join(save_dir, "scores.json")) as fh:
+        saved = json.load(fh)
+    for key in ("mse", "psnr", "ssim", "rlpips"):
+        check(key in saved and bool(np.isfinite(saved[key])),
+              f"append_v2 inference: scores.json lacks a finite {key}")
+    check_rerenders(save_dir, VAL_VIEWS, TRAIN_RES, "walking.gif")
+    paths["append_v2_inference"] = counts
+
+    ms = {"plain": [], "kernel": []}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        sol, _ = prefix_train_run(tmp, dataset_dir, f"append_v2_{path}_timed",
+                                  *((2, 1) if path == "kernel" else (0, 0)))
+        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+    print(f"append_v2: ms per step of {BATCH} rays (host clock, synchronised, median without "
+          f"the first step; plain/kernel/kernel/plain): kernel path "
+          f"{statistics.mean(ms['kernel']):.1f} {ms['kernel']}, plain path "
+          f"{statistics.mean(ms['plain']):.1f} {ms['plain']}")
+    data = datasets.load_dataset(os.path.join(dataset_dir, "train"), "append_smpl_params")
+    arrays = solver.device_arrays(data, "append_smpl_params")
+    batch = solver.gather(arrays, np.arange(BATCH))
+    solver.train_step(batch, solver.generator)
+    device_ms = profiled("one kernel-path append_smpl_params (--use_fused_mlp=2) training step",
+                         lambda: solver.train_step(batch, solver.generator))
+    return paths, {"append_v2_train": device_ms}
+
+
+def embedder_gradient(tmp: str, dataset_dir: str) -> dict:
+    """append_vertex_locations_to_nerf under --use_fused_mlp=2: the loss
+    gradient of the vertex embedder, whose 64-wide output is both nets'
+    prefix, so that it reaches the embedder only through kernel C's prefix
+    columns of dX. Held against the same pipeline with kernels B and C
+    replaced by their plain versions (autograd through
+    `reference_forward_raw`; the same roundings: BWD_DW_REL by relative
+    norm), and printed beside the plain path's (--use_fused_mlp=0, flax's
+    roundings: LOSS_REL)."""
+    import dataclasses
+
+    from smpl_nerf_tpu_torch import pipelines
+    from smpl_nerf_tpu_torch.data import datasets
+    from smpl_nerf_tpu_torch.ops import fused_mlp, fused_mlp_v2
+    from smpl_nerf_tpu_torch.training import solver as solver_mod
+
+    model_type = "append_vertex_locations_to_nerf"
+    solver, _ = smpl_family_run(tmp, dataset_dir, "append_vertex_v2_grad", model_type, 2, 1,
+                                ("--run_fine=1",), steps=1)
+    train = datasets.load_dataset(os.path.join(dataset_dir, "train"), model_type)
+    batch = solver.gather(solver.device_arrays(train, model_type),
+                          np.arange(BATCH) * 3 % train.num_rays)
+    pipe = solver.pipeline
+    embedder = pipe.models["vertex_embedder"]
+
+    def grads(pipeline):
+        for m in pipeline.models.values():
+            m.zero_grad()
+        loss, _ = solver_mod.make_loss_fn(pipeline)(batch, None, False)
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in embedder.parameters()]
+
+    c0 = launch_counts()["fused_mlp_v2_bwd"]
+    loss_k, kernel = grads(pipe)
+    check(launch_counts()["fused_mlp_v2_bwd"] - c0 == 2,
+          "embedder gradient: kernel C did not run on both nets")
+    plain_cfg = dataclasses.replace(pipe.cfg, use_fused_mlp=0, use_pallas=0)
+    loss_p, plain = grads(pipelines.build_pipeline(plain_cfg, pipe.models, pipe.passes.encoders,
+                                                   pipe.passes.extras))
+    original = pipelines.fused_v2.fused_apply_raw
+    pipelines.fused_v2.fused_apply_raw = lambda spec, net, x: fused_mlp_v2.reference_forward_raw(
+        spec, fused_mlp.flatten_params(spec, net), x)
+    try:
+        loss_r, reference = grads(pipe)
+    finally:
+        pipelines.fused_v2.fused_apply_raw = original
+    to_ref = max(float((a - b).norm() / b.norm()) for a, b in zip(kernel, reference))
+    to_plain = max(float((a - b).norm() / b.norm()) for a, b in zip(kernel, plain))
+    print(f"append_vertex_v2: vertex embedder gradient (|g| {float(kernel[0].norm()):.4e}), "
+          f"kernel path against B and C's plain versions: worst ||err||/||ref|| {to_ref:.3e} "
+          f"(bound {BWD_DW_REL}); against the plain path: {to_plain:.3e} (bound {LOSS_REL}); "
+          f"losses {loss_k:.6f} / {loss_r:.6f} / {loss_p:.6f}")
+    check(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in kernel),
+          "embedder gradient: zero or non-finite on the kernel path")
+    check(to_ref <= BWD_DW_REL, "embedder gradient: kernel path and plain versions disagree")
+    check(to_plain <= LOSS_REL, "embedder gradient: kernel path and plain path disagree")
+    return {"to_plain_versions": to_ref, "to_plain_path": to_plain}
 
 
 def gif_frames(path: str) -> tuple:
@@ -2552,6 +2869,7 @@ def main() -> None:
     ptxas = phase_build()
     kernels = [phase_sample_pdf(device), phase_fused_mlp(device), phase_fused_mlp_v1(device),
                phase_fused_bwd(device), phase_expert_tiles(device), phase_relu_matmul(device)]
+    prefix_kernels = phase_fused_prefix(device)
     odd_k = phase_odd_k(device)
     for k in kernels:
         if k["name"] in odd_k:
@@ -2578,9 +2896,19 @@ def main() -> None:
                                                ("--run_fine=1",), "fused_mlp_fwd")
         paths.update(culled_paths)
         device_ms.update(culled_ms)
+        # the same append nets on raw rows: the prefix rows of kernels B and C
+        paths["append_v2_render"], append_v2_runs = phase_render(
+            tmp, "append_v2", APPEND_CONFIG, (2, 1), ("--run_fine=1",),
+            {"sample_pdf": 1, "fused_mlp_v2_fwd": 2, "fused_mlp_fwd": 0, "fused_mlp_v2_bwd": 0})
+        device_ms["append_v2_render"] = profiled(
+            f"kernel-path append_smpl_params --use_fused_mlp=2 render of {VIEWS} views",
+            lambda: render(append_v2_runs[0], out))
         dataset_dir = make_dataset(tmp, smpl_runs[0])
         paths["train"], device_ms["train"], train_dir = phase_training(tmp, dataset_dir)
         paths["inference"] = phase_inference(tmp, dataset_dir, train_dir)
+        prefix_paths, prefix_ms = phase_prefix_training(tmp, dataset_dir)
+        paths.update(prefix_paths)
+        device_ms.update(prefix_ms)
         for what, config_file, extra in (("siren", ARM_ANGLES, ("--siren=1",)),
                                          ("grid", APPEND_CONFIG,
                                           ("--run_fine=1", "--grid_encoding=1"))):
@@ -2601,6 +2929,13 @@ def main() -> None:
             {"sample_pdf": 1, "fused_mlp_fwd": 2})
         paths.update(smpl_paths)
         device_ms.update(smpl_ms)
+        smpl_paths, smpl_ms, _ = phase_smpl_family(
+            tmp, dataset_dir, "append_vertex_v2", "append_vertex_locations_to_nerf", (2, 1),
+            ("--run_fine=1",), {"sample_pdf": 1, "fused_mlp_v2_fwd": 2, "fused_mlp_v2_bwd": 2},
+            {"sample_pdf": 1, "fused_mlp_v2_fwd": 2})
+        paths.update(smpl_paths)
+        device_ms.update(smpl_ms)
+        embedder = embedder_gradient(tmp, dataset_dir)
         paths["image_wise"] = phase_image_wise(tmp, dataset_dir, dynamic_run)
         smpl_paths = [p for p in paths if p.startswith(("dynamic", "append_vertex"))]
         for name in ("sample_pdf", "fused_mlp_v2_fwd", "fused_mlp_v2_bwd", "fused_mlp_fwd"):
@@ -2628,13 +2963,19 @@ def main() -> None:
     kernel_e.update({key: on_path["path_bf16"][key]
                      for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                  "bound_by")})
+    # the prefix rows' entries count B's and C's launches on the prefixed nets' paths
+    prefix_kernels[1]["embedder_gradient"] = embedder
+    kernels += prefix_kernels
     for k in kernels:
+        counter = k.get("counter", k["name"])
+        on = lambda path: "counter" not in k or path.startswith(PREFIX_PATHS)
         k["ptxas"] = ptxas[os.path.splitext(os.path.basename(k["source"]))[0]]
-        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
+        k["launches_by_path"] = {path: counts[counter] for path, counts in paths.items()
+                                 if on(path)}
         k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} was launched on no main path")
-        k["device_ms_by_path"] = {path: ms[k["name"]] for path, ms in device_ms.items()
-                                  if k["name"] in ms}
+        k["device_ms_by_path"] = {path: ms[counter] for path, ms in device_ms.items()
+                                  if counter in ms and on(path)}
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

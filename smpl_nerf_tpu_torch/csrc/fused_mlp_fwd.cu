@@ -148,6 +148,7 @@ int fused_mlp_fwd_launch(const float* x, float* y, const void* w, const float* b
   p.pos_block = pos_block;
   p.dir_dim = dir_dim;
   p.in_dim = in_dim;
+  p.add = 0;                 // XSrc reads the prefix as the first columns of its block
   p.P = (pos_block + kChunkK - 1) / kChunkK;
   p.Dc = (dir_dim + kChunkK - 1) / kChunkK;
   p.skip_mask = skip_mask;

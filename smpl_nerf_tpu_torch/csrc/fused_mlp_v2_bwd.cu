@@ -1,5 +1,6 @@
 // Fused RenderRayNet v2 backward on Hopper (sm_90a): dX and every dW and db of
-// the net for raw rows x [N, 6] and the output cotangent g [N, 4].
+// the net for raw rows x [N, add + 6] (prefix || xyz || dir) and the output
+// cotangent g [N, 4].
 //
 // Replaces the TPU kernel smpl_nerf_tpu/ops/fused_mlp_v2.py:_pallas_backward
 // (jax.vjp of `_tile_forward` per 256-row tile, dW summed over tiles). Plain
@@ -13,6 +14,9 @@
 //       d pos / d dir (bf16 adds);
 //   sigma head: dY(additional) = bf16(dH + bf16(g[:, 3] * Wsig^T))
 //   dX[:, j] = sum_k d enc[:, col(k, j)] * cos(arg(k, j)) * 2^k   (float32)
+//   dX[:, :add] = d prefix: the bf16 sum of the first layer's and each skip
+//       layer's cotangent on the prefix rows, as float32 (the VJP of the
+//       prefix's bf16 rounding: no cos, no 2^k)
 // The roundings are those of jax.vjp through `_tile_forward`: a cotangent that
 // reaches a bf16 value is rounded to bf16 (so every dY of a dense layer is
 // exactly bf16 and the tensor-core products lose nothing), and the dW of each
@@ -21,10 +25,12 @@
 //
 // What bounds it on the H100: three times the forward's tensor-core
 // operations (the recompute, the dH chain, the dW products): 3 x 2 x 607,872
-// FLOP per sample at W = 256, 0.48 ms at 131,072 rows. This design adds bytes
+// FLOP per sample at W = 256, 0.48 ms at 131,072 rows (3 x 2 x 925,824 with
+// the 621-wide prefix of append_smpl_params: 0.74 ms). This design adds bytes
 // the bound does not count: every layer's input H and cotangent dY go through
 // device memory once (10,496 B per row at W = 256, written and read: ~0.8 ms
-// of memory time at 131,072 rows).
+// of memory time at 131,072 rows; the prefix adds 1,280 B of bf16 prefix
+// columns to the scratch row).
 //
 // Three launches, no atomics, so dX, dW and db are the same bits on every run:
 //  1. fused_mlp_v2_bwd_kernel: the mainloop of render_net.cuh per 128-row
@@ -39,9 +45,20 @@
 //     scratch [N, ld] by TMA, and read from there by the next layer's wgmma
 //     as its A operand, so only the accumulators live in registers (A from
 //     registers, as in B, leaves no room here for the stores and the
-//     backward). The tile's encodings go to the scratch too; the ReLU bits
-//     wait in a per-block buffer and d pos / d dir in a per-block bf16
-//     buffer (both stay in L2); dX is written at the end of the tile.
+//     backward). The tile's encodings (with the bf16 prefix) go to the
+//     scratch too; the ReLU bits wait in a per-block buffer and d pos / d
+//     dir in a per-block bf16 buffer (both stay in L2); dX is written at the
+//     end of the tile.
+//     A conditioning prefix is the leading columns of the prefix+pos block
+//     (kernel D's pack), so its cotangent gathers in that block's share of
+//     the d-encoding buffer like d pos: at add = 621 the buffer is 12 chunks
+//     wide, 196 KB per block, 26 MB for 132 blocks, which L2 holds. The
+//     other way, d prefix as a GEMM of the stored cotangents against the
+//     prefix rows of the first and skip layers' weights after the chain,
+//     would re-read dY from the scratch and need a launch and a reduction of
+//     its own for what the chain already computes (the dH chain's products
+//     on the encoding rows give d prefix with the same bf16 adds), so the
+//     buffer stays.
 //  2. fused_mlp_v2_dw_kernel: dW = A^T @ dY of every layer as a split-K
 //     GEMM over the rows: a unit is (split of rows, 128 x 128 tile of one
 //     layer's dW). A TMA producer lands 64-row boxes of A and dY from the
@@ -134,7 +151,7 @@ struct Bwd {
   Net net;
   Geo geo;
   const float* g;          // [N, 4]
-  float* dx;               // [N, 6]
+  float* dx;               // [N, add + 6]
   bf16* scratch;           // [N, ld]
   uint32_t* masks;         // per block: [n][WP / 64][256] ReLU bits of the trunk's outputs
   bf16* denc;              // per block: [128][64 (P + Dc)] d pos || d dir
@@ -503,20 +520,24 @@ __device__ __forceinline__ void consume_tile(const Bwd& b, const CUtensorMap* tm
   // positions_pose_input: its rows are all encoding
   consume_bwd<C, WP, 0>(b, acc, staging, p.P, 0, row, it, smem, full, empty, q);
 
-  // ---- dX: d enc * cos(arg) * 2^k, summed over the thread's columns, then the quad
+  // ---- dX: the prefix columns are d prefix itself, written by the thread
+  // that holds them; each coordinate sums d enc * cos(arg) * 2^k over the
+  // thread's columns, then the quad
   float d[2][6] = {};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int grow = row_top + 8 * h;
-    const float* xr = p.x + (size_t)(grow < p.N ? grow : 0) * 6;
+    const float* xr = p.x + (size_t)(grow < p.N ? grow : 0) * p.in_dim + p.add;
     float x[6];
 #pragma unroll
     for (int e = 0; e < 6; ++e) x[e] = grow < p.N ? __ldg(xr + e) : 0.f;
     const bf16* de = denc_row(b, row + 8 * h);
+    float* dx_prefix = b.dx + (size_t)(grow < p.N ? grow : 0) * p.in_dim;
 #pragma unroll
     for (int blk = 0; blk < 2; ++blk) {
       if (blk == 1 && !p.use_dir) continue;   // no directional input: d dir stays 0
       const int chunks = blk == 0 ? p.P : p.Dc, cols = blk == 0 ? p.pos_block : p.dir_dim;
+      const int lead = blk == 0 ? p.add : 0;
       const float x0 = blk ? x[3] : x[0], x1 = blk ? x[4] : x[1], x2 = blk ? x[5] : x[2];
       float s0 = 0.f, s1 = 0.f, s2 = 0.f;
       for (int cc = 0; cc < chunks; ++cc) {
@@ -525,11 +546,14 @@ __device__ __forceinline__ void consume_tile(const Bwd& b, const CUtensorMap* tm
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = 64 * cc + 8 * j + 2 * q + e;
-            if (c < cols) {
+            if (c < lead) {
+              if (grow < p.N) dx_prefix[c] = __bfloat162float(de[c]);
+            } else if (c < cols) {
+              const int ce = c - lead;
               const float v = __bfloat162float(de[(blk ? 64 * p.P : 0) + c]) *
-                              cosf(fused_mlp::encoding_arg(x0, x1, x2, c)) *
-                              (float)(1 << (c / 6));
-              const int coord = (c % 6) % 3;
+                              cosf(fused_mlp::encoding_arg(x0, x1, x2, ce)) *
+                              (float)(1 << (ce / 6));
+              const int coord = (ce % 6) % 3;
               if (coord == 0) s0 += v;
               else if (coord == 1) s1 += v;
               else s2 += v;
@@ -552,7 +576,8 @@ __device__ __forceinline__ void consume_tile(const Bwd& b, const CUtensorMap* tm
   const int grow = row_top + (q == 1 ? 8 : 0);
   if (q < 2 && grow < p.N) {
 #pragma unroll
-    for (int e = 0; e < 6; ++e) b.dx[(size_t)grow * 6 + e] = q == 0 ? d[0][e] : d[1][e];
+    for (int e = 0; e < 6; ++e)
+      b.dx[(size_t)grow * p.in_dim + p.add + e] = q == 0 ? d[0][e] : d[1][e];
   }
 }
 
@@ -834,7 +859,7 @@ struct Plan {
 
 size_t align256(size_t v) { return (v + 255) / 256 * 256; }
 
-int make_plan(Plan& pl, int N, int n_layers, int W, int pos_freqs, int dir_freqs,
+int make_plan(Plan& pl, int N, int n_layers, int W, int add, int pos_freqs, int dir_freqs,
               unsigned skip_mask, int use_dir) {
   int dev = 0, sms = 0;
   cudaError_t err;
@@ -845,7 +870,7 @@ int make_plan(Plan& pl, int N, int n_layers, int W, int pos_freqs, int dir_freqs
   g.N = N;
   g.WP = padded_width(W);
   g.n = n_layers;
-  g.P = (6 * pos_freqs + kChunkK - 1) / kChunkK;
+  g.P = (add + 6 * pos_freqs + kChunkK - 1) / kChunkK;
   g.Dc = (6 * dir_freqs + kChunkK - 1) / kChunkK;
   g.use_dir = use_dir;
   g.skip_mask = skip_mask;
@@ -883,26 +908,27 @@ extern "C" {
 
 // out[0] = workspace bytes, out[1] = float32 gradients (the grads buffer's
 // length) for a backward of N rows.
-int fused_mlp_v2_bwd_sizes(int N, int n_layers, int W, int pos_freqs, int dir_freqs,
+int fused_mlp_v2_bwd_sizes(int N, int n_layers, int W, int add, int pos_freqs, int dir_freqs,
                            unsigned skip_mask, int use_dir, long long* out) {
   Plan pl;
-  const int err = make_plan(pl, N, n_layers, W, pos_freqs, dir_freqs, skip_mask, use_dir);
+  const int err = make_plan(pl, N, n_layers, W, add, pos_freqs, dir_freqs, skip_mask, use_dir);
   if (err != 0) return err;
   out[0] = (long long)pl.bytes;
   out[1] = pl.G;
   return 0;
 }
 
-// x [N, 6] float32 raw rows, g [N, 4] float32 cotangent of (rgb || sigma),
-// dx [N, 6] float32 and grads (the layout above) written; workspace of
-// fused_mlp_v2_bwd_sizes bytes; w / b / heads: ops/fused_mlp.py:pack_weights_d.
-// N >= 1. Three launches; returns the first CUDA error (0 on success).
+// x [N, add + 6] float32 raw rows, g [N, 4] float32 cotangent of (rgb ||
+// sigma), dx [N, add + 6] float32 and grads (the layout above) written;
+// workspace of fused_mlp_v2_bwd_sizes bytes; w / b / heads:
+// ops/fused_mlp.py:pack_weights_d. N >= 1. Three launches; returns the first
+// CUDA error (0 on success).
 int fused_mlp_v2_bwd_launch(const float* x, const float* g, float* dx, float* grads,
                             void* workspace, const void* w, const float* b, const float* heads,
-                            int N, int n_layers, int W, int pos_freqs, int dir_freqs,
+                            int N, int n_layers, int W, int add, int pos_freqs, int dir_freqs,
                             unsigned skip_mask, int use_dir, cudaStream_t stream) {
   Plan pl;
-  int err = make_plan(pl, N, n_layers, W, pos_freqs, dir_freqs, skip_mask, use_dir);
+  int err = make_plan(pl, N, n_layers, W, add, pos_freqs, dir_freqs, skip_mask, use_dir);
   if (err != 0) return err;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   Bwd bw;
@@ -914,9 +940,10 @@ int fused_mlp_v2_bwd_launch(const float* x, const float* g, float* dx, float* gr
   p.heads = heads;
   p.N = N;
   p.n_layers = n_layers;
-  p.pos_block = 6 * pos_freqs;
+  p.pos_block = add + 6 * pos_freqs;
   p.dir_dim = 6 * dir_freqs;
-  p.in_dim = 6;
+  p.in_dim = add + 6;
+  p.add = add;
   p.P = pl.geo.P;
   p.Dc = pl.geo.Dc;
   p.skip_mask = skip_mask;

@@ -24,7 +24,8 @@
 //    128 x 64 bf16 A chunks that the producer writes into the stage beside
 //    the weight chunk. Where they come from is the kernel's `Src`:
 //    D rounds float32 columns of x landed with cp.async (XSrc in
-//    fused_mlp_fwd.cu); B and C encode raw rows (EncodeSrc below).
+//    fused_mlp_fwd.cu); B and C round the raw rows' prefix columns and
+//    encode their xyz and dir (EncodeSrc below).
 //  - heads: sigma_out_layer (N = 1) and rgb_out_layer (N = 3) are float32
 //    dots; a thread sums the columns its registers hold, a quad shuffle
 //    finishes the row.
@@ -65,12 +66,13 @@ struct Cfg {
 inline int padded_width(int W) { return W <= 128 ? 128 : 256; }
 
 struct Net {
-  const float* x;              // D: [N, in_dim] pre-encoded rows; B, C: [N, 6] raw rows
+  const float* x;              // D: [N, in_dim] pre-encoded rows; B, C: [N, add + 6] raw rows
   float* y;                    // [N, 4] (B, D)
   const unsigned char* w;      // pack_weights_d chunk images
   const float* bias;           // per layer, padded to its N
   const float* heads;          // sigma w [WP], rgb w [WP / 2][3], rgb b [3], sigma b
-  int N, n_layers, pos_block, dir_dim, in_dim;
+  int N, n_layers, pos_block, dir_dim, in_dim;   // pos_block: prefix + pos columns
+  int add;                     // B, C: the prefix columns leading each raw row
   int P, Dc;                   // 64-column chunks of the prefix+pos and dir blocks
   unsigned skip_mask;
   int use_dir;
@@ -348,9 +350,14 @@ __device__ __forceinline__ void forward_body(const Net& p) {
   }
 }
 
-// B's and C's A chunks: the producer thread pt encodes row pt of the tile.
-// Its six raw floats sit in registers; the next tile's are loaded while this
-// one is produced.
+// B's and C's A chunks from raw rows [prefix (add) | xyz | dir]. The
+// prefix+pos block is [bf16(prefix) | pos encoding], the dir block the dir
+// encoding. The producer thread pt encodes row pt of the tile: its six
+// coordinates sit in registers, the next tile's loaded while this one is
+// produced. A chunk of prefix columns alone is copied with the producer's
+// threads spread along rows instead, so that a warp reads 64 neighbouring
+// floats of one row; the chunk that straddles the prefix's end reads its
+// prefix columns row by row (rows are not 16-byte aligned: add + 6 floats).
 struct EncodeSrc {
   static constexpr int kExtraBytes = 0;
   float cur[6], nxt[6];
@@ -358,7 +365,7 @@ struct EncodeSrc {
   __device__ __forceinline__ void load(const Net& p, int t, float* dst, int pt) {
     const int row = t * kTileRows + pt;
     const bool in = row < p.N;   // also false past the last tile
-    const float* src = p.x + (size_t)(in ? row : 0) * 6;
+    const float* src = p.x + (size_t)(in ? row : 0) * p.in_dim + p.add;
 #pragma unroll
     for (int e = 0; e < 6; ++e) dst[e] = in ? __ldg(src + e) : 0.f;
   }
@@ -373,29 +380,85 @@ struct EncodeSrc {
     load(p, t + gridDim.x, nxt, pt);
   }
 
-  // A chunk j of tile t: bf16(sin(encoding_arg)) of the pos or dir block's
-  // 64 columns cc * 64 .. (zero past the block), into row pt of the swizzled
-  // chunk; with enc_out, the block's first use also goes to device memory.
+  // Prefix columns [c0, c0 + 64) of tile t (all below add), rounded to bf16
+  // into the swizzled chunk, and with `store` into enc_out too; zeros for
+  // rows past N.
+  __device__ __forceinline__ void copy_prefix(const Net& p, int t, int c0, unsigned char* a,
+                                              bool store, int pt) {
+#pragma unroll 2
+    for (int i = pt; i < kTileRows * kChunkK / 2; i += kProducerThreads) {
+      const int row = i >> 5, col = (i & 31) * 2;
+      const int grow = t * kTileRows + row;
+      float lo = 0.f, hi = 0.f;
+      if (grow < p.N) {
+        const float* src = p.x + (size_t)grow * p.in_dim + c0 + col;
+        lo = __ldg(src);
+        hi = __ldg(src + 1);
+      }
+      const uint32_t v = pack_bf16(lo, hi);
+      *reinterpret_cast<uint32_t*>(a + swizzle128(row, col)) = v;
+      if (store && grow < p.N)
+        *reinterpret_cast<uint32_t*>(p.enc_out + (size_t)grow * p.enc_ld + c0 + col) = v;
+    }
+  }
+
+  // A chunk j of tile t: the pos or dir block's 64 columns cc * 64 .. into
+  // the swizzled chunk; with enc_out, the block's first use also goes to
+  // device memory. Columns of an encoding are bf16(sin(encoding_arg)), zero
+  // past the block (padding columns meet zero weight rows).
   __device__ __forceinline__ void fill(const Net& p, int t, int j, unsigned char* a, int pt) {
     bool is_dir;
     int cc;
     a_chunk(p, j, is_dir, cc);
+    const bool store = p.enc_out != nullptr && (is_dir || j < p.P);
+    const int c0 = cc * kChunkK;
+    const bool prefix = !is_dir && c0 < p.add;
+    if (prefix && c0 + kChunkK <= p.add) {
+      copy_prefix(p, t, c0, a, store, pt);
+      return;
+    }
+    const int lead = is_dir ? 0 : p.add;
     const int cols = is_dir ? p.dir_dim : p.pos_block;
     const float x0 = is_dir ? cur[3] : cur[0], x1 = is_dir ? cur[4] : cur[1],
                 x2 = is_dir ? cur[5] : cur[2];
     const int row = t * kTileRows + pt;
     __nv_bfloat16* out = nullptr;
-    if (p.enc_out != nullptr && (is_dir || j < p.P) && row < p.N)
-      out = p.enc_out + (size_t)row * p.enc_ld + (is_dir ? p.P * kChunkK : 0) + cc * kChunkK;
+    if (store && row < p.N)
+      out = p.enc_out + (size_t)row * p.enc_ld + (is_dir ? p.P * kChunkK : 0) + c0;
+    if (prefix) {
+      // the chunk that straddles the prefix's end: the row's own prefix
+      // columns, then its encoding; one chunk per use of the block, left
+      // rolled, which keeps the producer within its registers
+      const float* xr = p.x + (size_t)(row < p.N ? row : 0) * p.in_dim;
+#pragma unroll 1
+      for (int g = 0; g < 8; ++g) {
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float f[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = c0 + 8 * g + 2 * e + h;
+            f[h] = c < lead ? (row < p.N ? __ldg(xr + c) : 0.f)
+                 : c < cols ? sinf(fused_mlp::encoding_arg(x0, x1, x2, c - lead)) : 0.f;
+          }
+          v[e] = pack_bf16(f[0], f[1]);
+        }
+        const uint4 chunk = make_uint4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<uint4*>(a + swizzle128(pt, 8 * g)) = chunk;
+        if (out != nullptr) *reinterpret_cast<uint4*>(out + 8 * g) = chunk;
+      }
+      return;
+    }
 #pragma unroll 2
     for (int g = 0; g < 8; ++g) {
       uint32_t v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = cc * kChunkK + 8 * g + 2 * e;
-        // zero padding columns: they meet zero weight rows
-        const float lo = c < cols ? sinf(fused_mlp::encoding_arg(x0, x1, x2, c)) : 0.f;
-        const float hi = c + 1 < cols ? sinf(fused_mlp::encoding_arg(x0, x1, x2, c + 1)) : 0.f;
+        const int c = c0 - lead + 8 * g + 2 * e;     // the encoding's column
+        const float lo = c < cols - lead ? sinf(fused_mlp::encoding_arg(x0, x1, x2, c)) : 0.f;
+        const float hi =
+            c + 1 < cols - lead ? sinf(fused_mlp::encoding_arg(x0, x1, x2, c + 1)) : 0.f;
         v[e] = pack_bf16(lo, hi);
       }
       const uint4 chunk = make_uint4(v[0], v[1], v[2], v[3]);

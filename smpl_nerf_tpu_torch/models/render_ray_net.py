@@ -32,6 +32,7 @@ sin(30 x) per activation.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -47,17 +48,22 @@ def _linear(in_dim: int, out_dim: int, device) -> nn.Linear:
 
 def init_linear_(layer: nn.Module, generator: Optional[torch.Generator],
                  fan_in: Optional[int] = None) -> None:
-    """Flax's Dense init: lecun-normal kernel (clipped at 2 std), zero bias.
-    `fan_in` defaults to a Linear's (the weight's second dimension); a
-    convolution passes its own.
+    """Flax's Dense init: lecun-normal kernel, zero bias. As flax's
+    `variance_scaling(1, "fan_in", "truncated_normal")`: a standard normal
+    truncated to [-2, 2] (its std is 0.8796...), scaled to std sqrt(1 /
+    fan_in). `fan_in` defaults to a Linear's (the weight's second
+    dimension); a convolution passes its own.
 
-    Values are drawn on the CPU so a seed gives the same weights on every
-    device.
+    The truncated draw is an inverse-CDF draw on the CPU (a seed gives the
+    same weights on every device): u uniform in (Phi(-2), Phi(2)), then
+    Phi^-1(u) = sqrt(2) erfinv(2u - 1).
     """
     fan_in = layer.weight.shape[1] if fan_in is None else fan_in
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     w = torch.empty(layer.weight.shape, dtype=torch.float32)
-    w.normal_(0.0, 1.0, generator=generator).clamp_(-2.0, 2.0).mul_(std)
+    lo = math.erf(-2.0 / math.sqrt(2.0))                 # 2 Phi(-2) - 1
+    w.uniform_(lo, -lo, generator=generator).erfinv_().mul_(math.sqrt(2.0))
+    w.clamp_(-2.0, 2.0).mul_(std)
     with torch.no_grad():
         layer.weight.copy_(w)
         layer.bias.zero_()

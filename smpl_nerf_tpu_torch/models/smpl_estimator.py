@@ -56,17 +56,6 @@ class FlaxBatchNorm2d(nn.Module):
             + self.bias[None, :, None, None]
 
 
-def _init_conv_(conv: nn.Conv2d, generator: Optional[torch.Generator]) -> None:
-    """flax's Conv init: lecun-normal kernel (fan-in 3*3*in, clipped at 2 std), zero bias."""
-    fan_in = conv.weight[0].numel()
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    w = torch.empty(conv.weight.shape, dtype=torch.float32)
-    w.normal_(0.0, 1.0, generator=generator).clamp_(-2.0, 2.0).mul_(std)
-    with torch.no_grad():
-        conv.weight.copy_(w)
-        conv.bias.zero_()
-
-
 class SmplEstimator(nn.Module):
     def __init__(self, human_size: int = 2, image_size=(128, 128), device=None,
                  generator: Optional[torch.Generator] = None):
@@ -83,7 +72,8 @@ class SmplEstimator(nn.Module):
         self.dropout = nn.Dropout(DROPOUT)
         self.fc2 = _linear(FC_WIDTH, int(human_size), device)
         for i in range(len(WIDTHS)):
-            _init_conv_(getattr(self, f"conv{i}"), generator)
+            conv = getattr(self, f"conv{i}")
+            init_linear_(conv, generator, conv.weight[0].numel())   # fan-in 3 * 3 * in
         init_linear_(self.fc1, generator)
         init_linear_(self.fc2, generator)
 

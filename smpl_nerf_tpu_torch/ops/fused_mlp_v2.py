@@ -1,16 +1,17 @@
 """Fused RenderRayNet v2: encoding inside the kernel (csrc/fused_mlp_v2_fwd.cu).
 
 Replaces the TPU kernel smpl_nerf_tpu/ops/fused_mlp_v2.py:_pallas_forward.
-The kernel reads raw rows [xyz(3) || unit dir(3)] (24 B per sample), builds
-both encodings as
+The kernel reads raw rows [prefix (add) || xyz(3) || unit dir(3)] (24 B per
+sample without a prefix), builds both encodings as
 
     enc(x) = sin(x @ M + P),  M[d, 2L*d] with 2^k on the (j mod d) row,
     P = 0 for sin blocks, pi/2 for cos blocks   (cos(t) == sin(t + pi/2))
 
-in the reference block order [sin f0 | cos f0 | sin f1 | ...], runs the whole
-RenderRayNet in bf16 with float32 accumulation, and writes [N, 4] = rgb || sigma.
-`reference_forward_raw` is its plain PyTorch version (same math as the JAX
-`_tile_forward`).
+in the reference block order [sin f0 | cos f0 | sin f1 | ...], puts the bf16
+prefix ahead of the position encoding (the first layer's and every skip
+layer's input), runs the whole RenderRayNet in bf16 with float32
+accumulation, and writes [N, 4] = rgb || sigma. `reference_forward_raw` is
+its plain PyTorch version (same math as the JAX `_tile_forward`).
 
 What bounds it on the H100: tensor-core operations. The W=256 net costs
 607,872 multiply-adds per sample against 40 bytes of input and output, far
@@ -22,15 +23,18 @@ memory, so a persistent block walks 128-row tiles and streams the weights
 from L2 as the 64-row chunk images of `pack_weights_d` through an mbarrier
 ring, while two consumer warpgroups run wgmma with the activations in
 registers. The producer warpgroup encodes each tile's raw rows into the A
-chunks of the layers that read the encodings. The pack is built once per
-model and cached on the module.
+chunks of the layers that read the encodings, and rounds the prefix columns
+into the leading chunks of the prefix+pos block (kernel D's pack: one pack
+for B, C and D). The pack is built once per model and cached on the module.
 
 `FusedMlpV2` is the autograd Function of `--use_fused_mlp=2` on the card:
 forward kernel B, backward kernel C (csrc/fused_mlp_v2_bwd.cu, replacing the
 TPU kernel `_pallas_backward`): per 128-row tile it recomputes the forward
 and runs the dH chain on wgmma (Wᵀ is the same chunk images through wgmma's
 transpose bit), writing dX and every layer's bf16 input and cotangent to a
-scratch; a split-K wgmma GEMM over the rows then forms dW (rounded to bf16
+scratch (dX's prefix columns are the bf16 sum of the first and skip layers'
+cotangents on them, as float32); a split-K wgmma GEMM over the rows then
+forms dW (rounded to bf16
 per 256-row slice, as the JAX kernel's tiles round) and db, and a last pass
 sums the splits in a fixed order. No atomics: the gradients are the same
 bits on every run. `reference_backward_raw` is its plain version:
@@ -154,8 +158,9 @@ def shared_bytes(spec: MlpSpec, backward: bool = False) -> int:
     (render_net.cuh's Cfg): a ring of 3 (padded width 256) or 4 (128) stages
     of a weight chunk and a 128 x 64 bf16 A chunk, the mbarriers and 1024 B of
     alignment slack; C adds a 64 x W bf16 staging tile per consumer
-    warpgroup. The depth and the encodings do not enter: every block of K
-    streams."""
+    warpgroup. The depth, the prefix and the encodings do not enter: every
+    block of K streams, and the producer rounds prefix columns straight from
+    device memory into the A chunk."""
     WP = padded_width(spec)
     stages = 3 if WP == 256 else 4
     staging = 2 * 64 * WP * 2 if backward else 0
@@ -167,9 +172,6 @@ def kernel_supports(spec: MlpSpec) -> str:
     reason = topology_reason(spec)
     if reason:
         return reason
-    if spec.additional_input_dim:
-        return ("prefix rows are not ported yet in the fused v2 CUDA kernels; a net with a "
-                "conditioning prefix runs through --use_fused_mlp=1 (the v1 kernel) or 0")
     if spec.positions_dim <= 0 or spec.directions_dim <= 0:
         return "the kernel needs positional and directional encodings"
     return ""
@@ -179,7 +181,7 @@ def kernel_supports(spec: MlpSpec) -> str:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp_v2_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp_v2_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_uint, i, p]
+    lib.fused_mlp_v2_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_uint, i, p]
     lib.fused_mlp_v2_fwd_launch.restype = ctypes.c_int
     lib.fused_mlp_v2_fwd_shared_bytes.argtypes = [i]
     lib.fused_mlp_v2_fwd_shared_bytes.restype = ctypes.c_int
@@ -190,9 +192,10 @@ def _lib() -> ctypes.CDLL:
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("fused_mlp_v2_bwd")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.fused_mlp_v2_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, u, i, p]
+    lib.fused_mlp_v2_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, u, i, p]
     lib.fused_mlp_v2_bwd_launch.restype = ctypes.c_int
-    lib.fused_mlp_v2_bwd_sizes.argtypes = [i, i, i, i, i, u, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_mlp_v2_bwd_sizes.argtypes = [i, i, i, i, i, i, u, i,
+                                           ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_mlp_v2_bwd_sizes.restype = ctypes.c_int
     lib.fused_mlp_v2_bwd_shared_bytes.argtypes = [i]
     lib.fused_mlp_v2_bwd_shared_bytes.restype = ctypes.c_int
@@ -213,12 +216,12 @@ def _check_rows(spec: MlpSpec, x_raw: torch.Tensor) -> None:
 
 def _net_args(spec: MlpSpec):
     pos_f, dir_f = _spec_freqs(spec)
-    return (spec.n_layers, spec.width, pos_f, dir_f, skip_mask(spec),
-            int(spec.use_directional_input))
+    return (spec.n_layers, spec.width, spec.additional_input_dim, pos_f, dir_f,
+            skip_mask(spec), int(spec.use_directional_input))
 
 
 def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B on raw rows [N, 6] (float32, CUDA) -> [N, 4] float32."""
+    """Launch kernel B on raw rows [N, add + 6] (float32, CUDA) -> [N, 4] float32."""
     global launches
     _check_rows(spec, x_raw)
     w, b, heads = packed(spec, net, x_raw.device, pack_weights_d)
@@ -238,8 +241,9 @@ def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor)
 
 def workspace_bytes(spec: MlpSpec, N: int) -> int:
     """Device memory kernel C borrows for N rows (the wrapper's torch.empty):
-    the bf16 scratch [N, ld] of every layer's input and cotangent, the
-    per-block ReLU bits and d-encoding buffers, the per-split partial sums."""
+    the bf16 scratch [N, ld] of every layer's input and cotangent (and of
+    the prefix+pos and dir blocks), the per-block ReLU bits and d-encoding
+    buffers, the per-split partial sums."""
     sizes = (ctypes.c_longlong * 2)()
     lib = _lib_bwd()
     _build.check(lib, lib.fused_mlp_v2_bwd_sizes(N, *_net_args(spec), sizes), "fused_mlp_v2_bwd")
@@ -251,10 +255,10 @@ def workspace_bytes(spec: MlpSpec, N: int) -> int:
 
 def fused_backward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor,
                         g: torch.Tensor):
-    """Launch kernel C: (dflat, dx) for raw rows [N, 6] and cotangent g [N, 4].
+    """Launch kernel C: (dflat, dx) for raw rows [N, add + 6] and cotangent g [N, 4].
 
     dflat are float32 (d kernel [in, out], d bias) pairs in `_param_order`
-    (views of one gradient buffer), dx is [N, 6] float32.
+    (views of one gradient buffer), dx is [N, add + 6] float32.
     """
     global launches_bwd
     _check_rows(spec, x_raw)
@@ -265,7 +269,7 @@ def fused_backward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor
                          f"{x_raw.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
     device = x_raw.device
     w, b, heads = packed(spec, net, device, pack_weights_d)
-    dx = torch.empty((N, 6), dtype=torch.float32, device=device)
+    dx = torch.empty((N, raw_in_dim(spec)), dtype=torch.float32, device=device)
     if N == 0:
         grads = torch.zeros(grad_count_d(spec), dtype=torch.float32, device=device)
         return unpack_grads_d(spec, grads), dx
@@ -283,7 +287,8 @@ def fused_backward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor
 
 class FusedMlpV2(torch.autograd.Function):
     """Forward: kernel B. Backward: kernel C, which returns the gradient of
-    every kernel and bias and of the raw rows."""
+    every kernel and bias and of the raw rows, prefix columns included (an
+    embedding that makes the prefix trains through them)."""
 
     @staticmethod
     def forward(ctx, spec, net, x_raw, *flat):

@@ -191,8 +191,11 @@ def _not_ported(what: str):
 def resolve_fused_mode_auto(spec, pos_enc, dir_enc, device: torch.device) -> int:
     """--use_fused_mlp=-1 (auto), as JAX's resolver picks on its accelerator:
     the fused v2 kernel for the prefix-free nets it takes, else the plain net.
-    On the CPU always the plain net."""
-    if (device.type == "cuda" and fused_v2.supports(spec, pos_enc, dir_enc)
+    On the CPU always the plain net. A prefixed net stays plain although
+    kernels B and C take it: JAX measured v2 slower end to end on the
+    prefixed flagship, so only an explicit --use_fused_mlp=2 sends it there."""
+    if (device.type == "cuda" and not spec.additional_input_dim
+            and fused_v2.supports(spec, pos_enc, dir_enc)
             and not fused_v2.kernel_supports(spec)):
         return 2
     return 0

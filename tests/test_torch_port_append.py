@@ -126,7 +126,8 @@ def test_append_bf16_stays_near_jax(rng, model_type):
 
 def test_explicit_v2_with_a_prefix_runs_plain_on_cpu_and_is_refused_for_cuda(rng):
     """JAX's explicit --use_fused_mlp=2 takes nets with a prefix; the port's
-    plain version does too, but kernels B and C do not yet: refused by name."""
+    plain version does too, and so do kernels B and C now (the name keeps the
+    refusal that this test held before they took prefix rows)."""
     want, got, port = _both(rng, "append_to_nerf", 1, 2, 2, seed=6)
     np.testing.assert_allclose(got["rgb_coarse"].numpy(), np.asarray(want["rgb_coarse"]),
                                atol=RGB_COARSE_ATOL)
@@ -134,7 +135,7 @@ def test_explicit_v2_with_a_prefix_runs_plain_on_cpu_and_is_refused_for_cuda(rng
     spec = fused_mlp.spec_from_model(port.models["model_coarse"])
     reason = fused_mlp_v2.kernel_supports(
         fused_mlp.MlpSpec(**{**spec.__dict__, "dtype": "bfloat16"}))
-    assert "prefix" in reason and "use_fused_mlp=1" in reason
+    assert reason == ""
 
 
 # ------------------------------------------------------------ kernel D, plain

@@ -162,10 +162,15 @@ def test_fused_v2_wrapper_refuses_what_the_kernel_does_not_take(gen, cuda):
         fused_mlp_v2.fused_apply_raw(spec, net, x[:, :5].contiguous())
     with pytest.raises(ValueError):
         fused_mlp_v2.fused_backward_cuda(spec, net, x, torch.ones(100, 3, device=cuda))
+    # a prefixed net takes rows of add + 6 columns, and no others
     prefixed = _net(cuda, 3, 64, 4, 2, (1,), True, seed=1, add=5)
-    with pytest.raises(ValueError, match="prefix"):
-        fused_mlp_v2.fused_apply_raw(fused_mlp.spec_from_model(prefixed), prefixed,
-                                     torch.zeros(10, 11, device=cuda))
+    pspec = fused_mlp.spec_from_model(prefixed)
+    with pytest.raises(ValueError):
+        fused_mlp_v2.fused_apply_raw(pspec, prefixed, x)
+    before = fused_mlp_v2.launches
+    assert fused_mlp_v2.fused_apply_raw(pspec, prefixed,
+                                        torch.zeros(10, 11, device=cuda)).shape == (10, 4)
+    assert fused_mlp_v2.launches == before + 1
 
 
 def _smpl_args(*extra):
@@ -438,6 +443,81 @@ def test_fused_v2_forward_at_a_culled_budget(gen, cuda):
     assert float((got - want).abs().max()) <= MLP_REL * float(want.abs().max())
 
 
+def _prefixed_rows(gen, n, add, cuda):
+    prefix = torch.from_numpy(gen.uniform(-1, 1, (n, add)).astype(np.float32)).to(cuda)
+    return torch.cat([prefix, _rows(gen, n, cuda)], -1).contiguous()
+
+
+@pytest.mark.parametrize("n_layers,width,add,skips,rows", [
+    (8, 256, 621, (4,), 1000),          # append_smpl_params under configs/config.txt
+    (8, 256, 621, (4,), 711 * 64 + 5),  # ragged rows past a culled budget's
+    (8, 256, 64, (4,), 2000),           # append_vertex_locations_to_nerf's embedding
+    (8, 256, 18, (4,), 2000),           # append_to_nerf's two encoded joints
+    (3, 64, 45, (0, 1), 700),           # chunk 0 holds 45 prefix and 19 encoded columns
+    (2, 96, 130, (0,), 300),            # two whole prefix chunks, padded to 128
+])
+def test_fused_v2_kernels_take_prefix_rows(gen, cuda, n_layers, width, add, skips, rows):
+    """Kernels B and C on raw rows [prefix | xyz | dir] against their plain
+    versions; dX's largest error against the float64 gradient, on the prefix
+    columns and on the xyz/dir columns apart; C twice, bit for bit."""
+    net = _net(cuda, n_layers, width, 10, 4, skips, True, seed=width + add, add=add)
+    spec = fused_mlp.spec_from_model(net)
+    flat = fused_mlp.flatten_params(spec, net)
+    x = _prefixed_rows(gen, rows, add, cuda)
+    g = torch.from_numpy(gen.randn(rows, 4).astype(np.float32)).to(cuda) / rows
+    b0, c0 = fused_mlp_v2.launches, fused_mlp_v2.launches_bwd
+    with torch.no_grad():
+        got = fused_mlp_v2.fused_forward_cuda(spec, net, x)
+        want = fused_mlp_v2.reference_forward_raw(spec, flat, x)
+    dflat, dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
+    again_flat, again_dx = fused_mlp_v2.fused_backward_cuda(spec, net, x, g)
+    want_flat, want_dx = fused_mlp_v2.reference_backward_raw(spec, flat, x, g)
+    exact = fused_mlp_v2.exact_backward_dx(spec, flat, x, g)
+    torch.cuda.synchronize()
+    assert (fused_mlp_v2.launches - b0, fused_mlp_v2.launches_bwd - c0) == (1, 2)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= MLP_REL * float(want.abs().max())
+    assert dx.shape == (rows, add + 6)
+    _check_backward(dflat, dx, want_flat, want_dx, exact)
+    for cols in (slice(0, add), slice(add, add + 6)):
+        _check_backward([], dx[:, cols], [], want_dx[:, cols], exact[:, cols])
+    assert torch.equal(dx, again_dx) and all(torch.equal(a, b)
+                                             for a, b in zip(dflat, again_flat))
+
+
+def test_fused_v2_prefix_gradient_reaches_an_embedding(gen, cuda):
+    """Forward B and backward C inside the autograd Function with a prefix
+    that a trainable embedding makes (append_vertex_locations_to_nerf's
+    shape: 64 wide, one row per ray, repeated over its samples): the
+    embedding's gradient, through C's prefix columns, against autograd
+    through the plain version."""
+    net = _net(cuda, 4, 128, 6, 3, (2,), True, seed=10, add=64).requires_grad_(True)
+    spec = fused_mlp.spec_from_model(net)
+    rays, samples = 40, 50
+    embed = torch.from_numpy(gen.randn(rays, 64).astype(np.float32) * 0.5).to(cuda)
+    base = _rows(gen, rays * samples, cuda)
+    target = torch.from_numpy(gen.randn(rays * samples, 4).astype(np.float32)).to(cuda)
+
+    def grads(apply):
+        net.zero_grad()
+        e = embed.clone().requires_grad_(True)
+        rows = torch.cat([e[:, None, :].expand(rays, samples, 64).reshape(-1, 64), base], -1)
+        loss = ((apply(rows) - target) ** 2).mean()
+        loss.backward()
+        return e.grad, [p.grad.clone() for p in net.parameters()]
+
+    c0 = fused_mlp_v2.launches_bwd
+    de_k, dp_k = grads(lambda x: fused_mlp_v2.fused_apply_raw(spec, net, x))
+    assert fused_mlp_v2.launches_bwd - c0 == 1
+    de_p, dp_p = grads(lambda x: fused_mlp_v2.reference_forward_raw(
+        spec, fused_mlp.flatten_params(spec, net), x))
+    assert float(de_p.abs().max()) > 0
+    # a sum over 50 samples of each ray's prefix cotangent: held like dW
+    assert float((de_k - de_p).norm()) <= BWD_DW_REL * float(de_p.norm())
+    for a, b in zip(dp_k, dp_p):
+        assert float((a - b).norm()) <= BWD_DW_REL * float(b.norm()) + 1e-12
+
+
 def test_fused_v2_kernels_take_no_rows(cuda):
     net = _net(cuda, 3, 64, 4, 2, (1,), True, seed=5)
     spec = fused_mlp.spec_from_model(net)
@@ -570,10 +650,14 @@ def test_auto_fused_mode_on_cuda_keeps_prefixed_nets_on_the_plain_net(gen, cuda)
         out = pipe({k: torch.from_numpy(v).to(cuda) for k, v in _smpl_batch(gen, 64).items()})
     assert (fused_mlp.launches, fused_mlp_v2.launches) == before
     assert torch.isfinite(out["rgb_fine"]).all()
-    with pytest.raises(ValueError, match="prefix"):
-        build_pipeline(RenderConfig.from_args(_append_args("append_smpl_params",
-                                                           "--use_fused_mlp=2")),
-                       models, encoders)
+    # an explicit --use_fused_mlp=2 takes them to kernel B, and never to D
+    pipe = build_pipeline(RenderConfig.from_args(_append_args("append_smpl_params",
+                                                              "--use_fused_mlp=2")),
+                          models, encoders)
+    with torch.no_grad():
+        out = pipe({k: torch.from_numpy(v).to(cuda) for k, v in _smpl_batch(gen, 64).items()})
+    assert (fused_mlp.launches - before[0], fused_mlp_v2.launches - before[1]) == (0, 2)
+    assert torch.isfinite(out["rgb_fine"]).all()
 
 
 def test_sample_pdf_kernel_under_grad_with_detached_inputs(gen, cuda):

@@ -327,10 +327,11 @@ def test_pipeline_matches_jax_build_pipeline(rng, humans, model_type, images_per
         np.testing.assert_allclose(to_np(got["rgb_fine"]), to_np(got["rgb_coarse"]))
 
 
-@pytest.mark.parametrize("mode", [1, -1])
+@pytest.mark.parametrize("mode", [1, -1, 2])
 def test_append_vertices_prefix_runs_through_the_fused_modes_on_cpu(rng, humans, mode):
-    """Kernel D's plain version (mode 1) and auto (mode 0 on the CPU) give the
-    plain net's render: in_dim 64 + 24 + 12."""
+    """Kernel D's plain version (mode 1), kernels B's and C's on raw rows with
+    the 64-wide embedding as their prefix (mode 2) and auto (mode 0 on the
+    CPU) give the plain net's render: in_dim 64 + 24 + 12."""
     goal_poses = (0.25 * rng.randn(N_IMG, 69)).astype(np.float32)
     jpipe, params, ppipe, _, _ = _both("append_vertex_locations_to_nerf", goal_poses, humans,
                                        extra=(f"--use_fused_mlp={mode}",))

@@ -208,7 +208,8 @@ def test_supports_and_kernel_gate():
     assert fused_mlp_v2.kernel_supports(spec) == ""
     assert "bfloat16" in fused_mlp_v2.kernel_supports(
         fused_mlp.MlpSpec(dtype="float32"))
-    assert "prefix" in fused_mlp_v2.kernel_supports(fused_mlp.MlpSpec(additional_input_dim=4))
+    for add in (4, 18, 64, 621):                 # kernels B and C take a conditioning prefix
+        assert fused_mlp_v2.kernel_supports(fused_mlp.MlpSpec(additional_input_dim=add)) == ""
     assert "width" in fused_mlp_v2.kernel_supports(fused_mlp.MlpSpec(width=512))
 
 

@@ -40,12 +40,12 @@ SLICE = 256
 HALF_PI = np.float32(np.pi / 2)
 
 
-def _nets(width=32, n_layers=3, skips=(1,), use_dir=True, pos_f=4, dir_f=2, seed=0):
+def _nets(width=32, n_layers=3, skips=(1,), use_dir=True, pos_f=4, dir_f=2, seed=0, add=0):
     common = dict(n_layers=n_layers, width=width, positions_dim=6 * pos_f,
-                  directions_dim=6 * dir_f, additional_input_dim=0, skips=tuple(skips),
+                  directions_dim=6 * dir_f, additional_input_dim=add, skips=tuple(skips),
                   use_directional_input=use_dir)
     params = JaxRenderRayNet(**common).init(jax.random.PRNGKey(seed),
-                                             jnp.zeros((2, 6 * (pos_f + dir_f))))
+                                             jnp.zeros((2, add + 6 * (pos_f + dir_f))))
     rs = np.random.RandomState(seed)
     params = jax.tree_util.tree_map(
         lambda p: p + 0.05 * jnp.asarray(rs.randn(*p.shape), jnp.float32) if p.ndim == 1 else p,
@@ -56,11 +56,12 @@ def _nets(width=32, n_layers=3, skips=(1,), use_dir=True, pos_f=4, dir_f=2, seed
             fused_mlp.MlpSpec(**common, dtype="bfloat16"), net)
 
 
-def _raw_rows(rng, n):
+def _raw_rows(rng, n, add=0):
+    prefix = rng.uniform(-1, 1, (n, add)).astype(np.float32)
     p3 = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
     d3 = rng.randn(n, 3).astype(np.float32)
     d3 /= np.linalg.norm(d3, axis=-1, keepdims=True)
-    return np.concatenate([p3, d3], -1)
+    return np.concatenate([prefix, p3, d3], -1)
 
 
 def _encode(coords, cols, chunks):
@@ -74,9 +75,14 @@ def _encode(coords, cols, chunks):
 
 
 def _blocks(spec, x):
-    P, Dc = -(-spec.positions_dim // 64), -(-spec.directions_dim // 64)
-    return {"pos": _encode(x[:, :3], spec.positions_dim, P),
-            "dir": _encode(x[:, 3:6], spec.directions_dim, Dc)}
+    """The producer's A chunks: the prefix+pos block ([bf16 prefix | pos
+    encoding], zero-padded to its chunks: a chunk can hold both) and the dir
+    block."""
+    add = spec.additional_input_dim
+    P, Dc = -(-spec.pos_block // 64), -(-spec.directions_dim // 64)
+    pos = _encode(x[:, add:add + 3], spec.positions_dim, P)[:, :64 * P - add]
+    return {"pos": torch.cat([x[:, :add].to(torch.bfloat16), pos], -1),
+            "dir": _encode(x[:, add + 3:add + 6], spec.directions_dim, Dc)}
 
 
 def _layer_weights(spec, w):
@@ -175,16 +181,19 @@ def _emulate_kernel_c(spec, w, b, heads, x, g, sps=1):
         dY[l - 1] = (backward_of(l) * (H[l - 1].float() > 0)).to(torch.bfloat16)
     backward_of(0)
 
-    # dX: d enc * cos(arg) * 2^k per coordinate
-    dx = torch.zeros(x.shape[0], 6)
-    for blk, coord0, cols in (("pos", 0, spec.positions_dim), ("dir", 3, spec.directions_dim)):
+    # dX: the prefix columns are d prefix; d enc * cos(arg) * 2^k per coordinate
+    add = spec.additional_input_dim
+    dx = torch.zeros(x.shape[0], add + 6)
+    dx[:, :add] = d_enc["pos"][:, :add].float()
+    for blk, coord0, lead, cols in (("pos", add, add, spec.positions_dim),
+                                    ("dir", add + 3, 0, spec.directions_dim)):
         if blk == "dir" and not spec.use_directional_input:
             continue
         c = torch.arange(cols)
         k, within = c // 6, c % 6
         t = x[:, coord0 + within % 3] * (2.0 ** k).float()
         t = torch.where(within >= 3, t + torch.tensor(HALF_PI), t)
-        v = d_enc[blk][:, :cols].float() * torch.cos(t) * (2.0 ** k).float()
+        v = d_enc[blk][:, lead:lead + cols].float() * torch.cos(t) * (2.0 ** k).float()
         for j in range(3):
             dx[:, coord0 + j] = v[:, within % 3 == j].sum(-1)
 
@@ -206,11 +215,13 @@ def _flat(net, spec):
 
 @pytest.mark.parametrize("kw", [{}, {"width": 64, "skips": (0, 1)}, {"use_dir": False},
                                 {"n_layers": 2, "skips": (), "pos_f": 10, "dir_f": 4},
-                                {"pos_f": 12, "width": 32}])    # a pos block of two chunks
+                                {"pos_f": 12, "width": 32},     # a pos block of two chunks
+                                # a prefix: chunk 0 holds 45 prefix and 19 encoded columns
+                                {"add": 45}, {"add": 130, "skips": (0, 1)}])
 def test_kernel_b_schedule_matches_plain_and_jax_pallas_forward_interpret(rng, kw):
     jspec, params, pspec, net = _nets(**kw)
     w, b, heads = fused_mlp.pack_weights_d(pspec, _flat(net, pspec), "cpu")
-    x = _raw_rows(rng, 300)
+    x = _raw_rows(rng, 300, pspec.additional_input_dim)
     got = _emulate_kernel_b(pspec, w, b, heads, torch.from_numpy(x)).numpy()
     plain = fused_mlp_v2.reference_forward_raw(pspec, _flat(net, pspec),
                                                torch.from_numpy(x)).detach().numpy()
@@ -250,12 +261,14 @@ def _check_backward(dflat, dx, want_flat, want_dx):
 
 
 @pytest.mark.parametrize("kw", [{}, {"width": 64, "skips": (0, 1)}, {"use_dir": False},
-                                {"n_layers": 2, "skips": (), "pos_f": 10, "dir_f": 4}])
+                                {"n_layers": 2, "skips": (), "pos_f": 10, "dir_f": 4},
+                                {"add": 45}])        # chunk 0: 45 prefix, 19 encoded columns
 @pytest.mark.parametrize("sps", [1, 2])
 def test_kernel_c_schedule_matches_plain_and_jax_pallas_backward_interpret(rng, kw, sps):
     jspec, params, pspec, net = _nets(**kw)
     w, b, heads = fused_mlp.pack_weights_d(pspec, _flat(net, pspec), "cpu")
-    x = _raw_rows(rng, 300)          # a whole 256-row slice and a ragged one
+    # a whole 256-row slice and a ragged one
+    x = _raw_rows(rng, 300, pspec.additional_input_dim)
     g = rng.randn(300, 4).astype(np.float32)
     grads, dx = _emulate_kernel_c(pspec, w, b, heads, torch.from_numpy(x),
                                   torch.from_numpy(g), sps)
@@ -269,8 +282,12 @@ def test_kernel_c_schedule_matches_plain_and_jax_pallas_backward_interpret(rng, 
     _check_backward([t.numpy() for t in got], dx.numpy(),
                     [t.detach().numpy() for t in plain_flat], plain_dx.detach().numpy())
     _check_backward([t.numpy() for t in got], dx.numpy(), want_flat, want_dx)
+    add = pspec.additional_input_dim
     if not pspec.use_directional_input:
-        assert not dx[:, 3:].any()
+        assert not dx[:, add + 3:].any()
+    if add:                     # the prefix columns apart: no cos * 2^k there
+        _check_backward([], dx[:, :add].numpy(), [], plain_dx[:, :add].detach().numpy())
+        _check_backward([], dx[:, :add].numpy(), [], np.asarray(want_dx)[:, :add])
 
 
 @pytest.mark.parametrize("kw", [{}, {"width": 96, "skips": (0, 2), "n_layers": 4},
@@ -341,3 +358,24 @@ def test_kernels_b_and_c_take_every_net_the_first_kernels_took(width, n_layers, 
                                  skips=skips, use_directional_input=use_dir), spec),
         "cpu")[:2]) + 3 * (fused_mlp.padded_width(spec) // 2) + fused_mlp.padded_width(spec) + 4
     assert fused_mlp.grad_count_d(spec) == n_params
+
+
+@pytest.mark.parametrize("width", [32, 128, 160, 256])
+@pytest.mark.parametrize("add", [5, 18, 45, 64, 621, 1200])
+def test_kernels_b_and_c_take_prefixed_nets(width, add):
+    """Every net the first kernels took, with a conditioning prefix in front
+    of the position encoding: the prefix streams through the A chunks of the
+    prefix+pos block, so it changes neither the shared memory nor the pack's
+    layers, and the gradient buffer grows by the prefix rows of the first
+    and the skip layers."""
+    spec = fused_mlp.MlpSpec(width=width, additional_input_dim=add)
+    plain = fused_mlp.MlpSpec(width=width)
+    assert not _old_v2_supports(spec) and _old_v2_supports(plain)
+    assert fused_mlp_v2.kernel_supports(spec) == ""
+    for backward in (False, True):
+        assert fused_mlp_v2.shared_bytes(spec, backward) == \
+            fused_mlp_v2.shared_bytes(plain, backward)
+    WP = fused_mlp.padded_width(spec)
+    pos_chunks = lambda s: -(-s.pos_block // 64)
+    extra_rows = 64 * (pos_chunks(spec) - pos_chunks(plain)) * (1 + len(spec.skips))
+    assert fused_mlp.grad_count_d(spec) - fused_mlp.grad_count_d(plain) == extra_rows * WP
