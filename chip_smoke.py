@@ -80,7 +80,26 @@ unguarded, so that any failure exits non-zero:
      run rendered through `render_path`, ms per step of both paths in turns
      (these runs, and the plain one, with --render_gif=0), and one profiled
      step;
-  8. inference: `cli.inference.inference` (inference_torch.py) on the kernel-path
+  7a. parallel (the parallel layer at world 1, on phase 7's dataset and
+     arm_angles.txt nets, --use_fused_mlp=2 --use_pallas=1): PAR_STEPS steps
+     through `cli.train.train` on mesh '1,1' with no process group, then a
+     world-1 NCCL group is initialised in-process (file:// rendezvous; its
+     seconds, with the first all-reduce) and the same steps run through the
+     data-parallel step (global-row draws, the loss share, the gradient and
+     loss all-reduces, rank 0's weights broadcast): A's, B's and C's launch
+     counts of both runs (equal, and as many as the steps and validation
+     batches ask for), the largest loss and weight differences (<= PAR_REL
+     relative; the same arithmetic, so 0 is expected), ms per step of both
+     (CUDA events, in turns); again with --tensor_parallel=1 (off on a model
+     axis of 1: the same losses); `torch.distributed.run --nproc_per_node=1
+     train_torch.py --multihost=1 --mesh_shape=1` for TORCHRUN_STEPS steps as a
+     subprocess (rank 0's run dir) and `restore_train_state` of that run
+     through `broadcast_file`; then sample_parallel_raw2outputs (R=SA_R,
+     S=SA_S), pipeline_trunk / pp_render_ray_net (one stage, PP_MICRO
+     microbatches, 8x256 float32) and expert_parallel_apply (EP_E experts,
+     EP_N tokens, skip ids) against their dense forms (<= PAR_FN_REL of the
+     largest value); the group is destroyed at the end;
+ 8. inference: `cli.inference.inference` (inference_torch.py) on the kernel-path
      training run and its val split at --inf_fast 0, 1 and 2, each with its
      launch counts (one grid bake per val view at 2), scores.json (mse, psnr,
      ssim, rlpips), the PNGs and walking.gif;
@@ -359,6 +378,12 @@ P2P_VIEWS, P2P_EPOCHS, P2P_BATCH = GEN_VIEWS, 5, 4
 # the paths of the prefixed nets on raw rows (--use_fused_mlp=2): the prefix
 # rows of kernels B and C
 PREFIX_PATHS = ("append_v2", "append_vertex_v2")
+# the parallel phase: steps of each world-1 run, the bound on the group run's
+# losses and weights against the run without a group (the same arithmetic: a
+# share of 1, sums over one rank), the sample-axis, pipeline and expert shapes
+PAR_STEPS, PAR_REL, TORCHRUN_STEPS = 4, 1e-6, 2
+SA_R, SA_S, PP_ROWS, PP_MICRO, EP_E, EP_N = 2048, 192, 4096, 4, 64, 8192
+PAR_FN_REL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1553,6 +1578,172 @@ def phase_training(tmp: str, dataset_dir: str) -> tuple:
     device_ms = profiled("one kernel-path training step",
                          lambda: solver.train_step(batch, solver.generator))
     return counts, device_ms, kernel_dir
+
+
+def parallel_run(tmp: str, dataset_dir: str, name: str, extra=()) -> tuple:
+    """cli.train on arm_angles.txt for PAR_STEPS kernel-path steps; (solver, launches)."""
+    from smpl_nerf_tpu_torch.cli import train as train_cli
+
+    zero_launch_counts()
+    solver = train_cli.train(
+        [f"--config={ARM_ANGLES}", f"--dataset_dir={dataset_dir}", "--num_epochs=1",
+         f"--steps_per_epoch={PAR_STEPS}", f"--batchsize_val={BATCH}", "--seed=1",
+         "--use_fused_mlp=2", "--use_pallas=1", "--render_gif=0",
+         "--number_validation_images=0", *extra],
+        log_dir=os.path.join(tmp, name), device=DEVICE)
+    return solver, launch_counts()
+
+
+def max_rel(got: dict, want: dict) -> float:
+    """Largest |got - want| / max |want| over the tensors of two state-dict trees."""
+    worst = 0.0
+    for name, sd in want.items():
+        for key, w in sd.items():
+            g = got[name][key].float()
+            worst = max(worst, float((g - w.float()).abs().max())
+                        / max(float(w.float().abs().max()), 1e-30))
+    return worst
+
+
+def step_ms(solver, arrays) -> float:
+    """CUDA-event ms of one train step of BATCH rays, as train() steps."""
+    lo, hi = solver.local_rows(BATCH)
+    batch = solver.gather(arrays, np.arange(BATCH)[lo:hi])
+    share = (hi - lo) / BATCH if solver.mesh.distributed else None
+    return time_ms(lambda: solver.train_step(batch, solver.draws(BATCH), share), reps=5,
+                   warmup=1)
+
+
+def phase_parallel(tmp: str, dataset_dir: str) -> dict:
+    import torch.distributed as dist
+    from smpl_nerf_tpu_torch.core import integrate
+    from smpl_nerf_tpu_torch.data import datasets
+    from smpl_nerf_tpu_torch.models import RenderRayNet
+    from smpl_nerf_tpu_torch.parallel import ep, pp, sample_axis
+    from smpl_nerf_tpu_torch.parallel import mesh as mesh_mod
+
+    steps = PAR_STEPS
+    val_batches = -(-VAL_VIEWS * TRAIN_RES * TRAIN_RES // BATCH)
+    expected = {"sample_pdf": steps + val_batches,
+                "fused_mlp_v2_fwd": 2 * (steps + val_batches),
+                "fused_mlp_v2_bwd": 2 * steps, "fused_mlp_fwd": 0}
+    check(not dist.is_initialized(), "parallel: a process group is up before the phase")
+    plain, plain_counts = parallel_run(tmp, dataset_dir, "par_nogroup", ("--mesh_shape=1,1",))
+    check(not plain.mesh.distributed, "parallel: the run without a group has collectives")
+    t0 = time.perf_counter()
+    mesh_mod.init_distributed(DEVICE, f"file://{os.path.join(tmp, 'rendezvous')}", rank=0,
+                              world=1)
+    probe = torch.ones(1, device=DEVICE)
+    dist.all_reduce(probe)                  # NCCL makes its communicator here
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"parallel: world-1 NCCL group up in {init_s:.3f} s (init and first all-reduce)")
+    group, group_counts = parallel_run(tmp, dataset_dir, "par_group", ("--mesh_shape=1,1",))
+    check(group.mesh.distributed and dist.get_backend() == "nccl",
+          "parallel: the group run has no NCCL mesh")
+    for what, counts in (("no group", plain_counts), ("world-1 group", group_counts)):
+        print(f"parallel: {what}: launches A {counts['sample_pdf']}, "
+              f"B {counts['fused_mlp_v2_fwd']}, C {counts['fused_mlp_v2_bwd']}")
+        for name, want in expected.items():
+            check(counts[name] == want, f"parallel: {what}: {name} launched {counts[name]} "
+                                        f"times, expected {want}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(group.history["step_loss"],
+                                                       plain.history["step_loss"]))
+    val_rel = abs(group.history["val_loss"][0] - plain.history["val_loss"][0]) / abs(
+        plain.history["val_loss"][0])
+    w_rel = max_rel(group.raw_state_dicts(), plain.raw_state_dicts())
+    print(f"parallel: group vs no group over {steps} steps: loss max rel {loss_rel:.3e}, "
+          f"val loss rel {val_rel:.3e}, weights max rel {w_rel:.3e} (bound {PAR_REL})")
+    check(max(loss_rel, val_rel, w_rel) <= PAR_REL,
+          "parallel: the world-1 group run differs from the run without a group")
+    tp_run, tp_counts = parallel_run(tmp, dataset_dir, "par_tp",
+                                     ("--mesh_shape=1,1", "--tensor_parallel=1"))
+    tp_rel = max(abs(a - b) / abs(b) for a, b in zip(tp_run.history["step_loss"],
+                                                     group.history["step_loss"]))
+    print(f"parallel: --tensor_parallel=1 on mesh '1,1' (a model axis of 1: off): "
+          f"launches {tp_counts}, loss max rel {tp_rel:.3e} against the group run")
+    check(not tp_run.tensor_parallel and tp_rel <= PAR_REL and tp_counts == group_counts,
+          "parallel: --tensor_parallel=1 on a model axis of 1 changed the run")
+    data = datasets.load_dataset(os.path.join(dataset_dir, "train"), "smpl_nerf")
+    arrays = group.device_arrays(data, "smpl_nerf")
+    ms = {"group": [], "no group": []}
+    for which in ("group", "no group", "no group", "group"):
+        ms[which].append(step_ms(group if which == "group" else plain, arrays))
+    print(f"parallel: ms per step of {BATCH} rays (CUDA events, median of 5, in turns "
+          f"group / no group / no group / group): world-1 group "
+          f"{statistics.mean(ms['group']):.2f} {ms['group']}, no group "
+          f"{statistics.mean(ms['no group']):.2f} {ms['no group']}")
+
+    # the CLI under torchrun: one process, its own group (env:// rendezvous)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         os.path.join(REPO, "train_torch.py"), "--multihost=1", "--mesh_shape=1",
+         f"--config={ARM_ANGLES}", f"--dataset_dir={dataset_dir}", "--num_epochs=1",
+         f"--steps_per_epoch={TORCHRUN_STEPS}", f"--batchsize_val={BATCH}", "--seed=1",
+         "--use_fused_mlp=2", "--use_pallas=1", "--render_gif=0",
+         "--number_validation_images=0", "--experiment_name=torchrun_smoke"],
+        cwd=tmp, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+        timeout=600)
+    if run.returncode != 0:
+        print(run.stdout[-3000:] + run.stderr[-3000:], file=sys.stderr)
+    check(run.returncode == 0, f"parallel: the torchrun training exited {run.returncode}")
+    runs = [d for d in os.listdir(os.path.join(tmp, "runs")) if d.endswith("_torchrun_smoke")]
+    check(len(runs) == 1, f"parallel: torchrun wrote {runs}, not one run dir")
+    run_dir = os.path.join(tmp, "runs", runs[0])
+    for required in ("config.txt", "model_coarse.pt", "model_fine.pt", "train_state.pt"):
+        check(os.path.exists(os.path.join(run_dir, required)),
+              f"parallel: the torchrun run dir lacks {required}")
+    restored = group.restore_train_state(run_dir)
+    print(f"parallel: torchrun --nproc_per_node=1 train_torch.py --multihost=1: "
+          f"{TORCHRUN_STEPS} steps in {time.perf_counter() - t0:.1f} s (process included); "
+          f"restore_train_state through broadcast_file: {restored}, epoch offset "
+          f"{group.epoch_offset}")
+    check(restored and group.epoch_offset == 1,
+          "parallel: the torchrun run did not resume through broadcast_file")
+
+    # the sample axis, the pipeline and the experts at world 1, on the card
+    mesh = mesh_mod.make_mesh("1,1", DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    raw = torch.randn((SA_R, SA_S, 4), generator=gen, device=DEVICE)
+    z = torch.sort(1.0 + 3.0 * torch.rand((SA_R, SA_S), generator=gen, device=DEVICE), -1)[0]
+    dirs = torch.randn((SA_R, 3), generator=gen, device=DEVICE)
+    got = sample_axis.sample_parallel_raw2outputs(
+        mesh, sample_axis.segment(raw, mesh), sample_axis.segment(z, mesh),
+        sample_axis.segment(sample_axis.global_dists(z, dirs), mesh))
+    want = integrate.raw2outputs(raw, z, dirs)
+    errs = {"sample_axis": max(float((getattr(got, k) - getattr(want, k)).abs().max())
+                               / max(float(getattr(want, k).abs().max()), 1.0)
+                               for k in ("rgb", "weights", "depth", "acc"))}
+    net = RenderRayNet(8, 256, 60, 24, generator=torch.Generator().manual_seed(7),
+                       device=DEVICE)
+    x = torch.randn((PP_ROWS, 84), generator=gen, device=DEVICE)
+    with torch.no_grad():
+        k, b, u = pp.stack_trunk(net, 8, (4,), 60, 256)
+        trunk = pp.pipeline_trunk(mesh, k, b, u, x[:, :60], PP_MICRO)
+        dense = pp.trunk_dense(k, b, u, x[:, :60])
+        errs["pipeline_trunk"] = float((trunk - dense).abs().max()) / float(dense.abs().max())
+        out = pp.pp_render_ray_net(mesh, net, x, n_layers=8, width=256, pos_dim=60,
+                                   dir_dim=24, n_micro=PP_MICRO)
+        ref = net(x)
+        errs["pp_render_ray_net"] = float((out - ref).abs().max()) / float(ref.abs().max())
+        experts = ep.init_experts(torch.Generator(device=DEVICE).manual_seed(4), EP_E, 6, 32, 4)
+        xt = torch.randn((EP_N, 6), generator=gen, device=DEVICE)
+        ids = torch.randint(0, EP_E + 1, (EP_N,), generator=gen, device=DEVICE)   # E: skip
+        r = ep.expert_parallel_apply(mesh, experts, xt, ids, capacity=EP_N)
+        real = ids < EP_E
+        ref = ep.expert_apply(experts, xt, ids.clamp(max=EP_E - 1)) * real[:, None]
+        check(not bool(r.overflow.any()), "parallel: expert_parallel_apply overflowed")
+        errs["expert_parallel_apply"] = float((r.out - ref).abs().max()) / float(
+            ref.abs().max())
+    print(f"parallel: against the dense forms, max error over max |value|: {errs} "
+          f"(bound {PAR_FN_REL})")
+    for name, err in errs.items():
+        check(err <= PAR_FN_REL, f"parallel: {name} disagrees with its dense form ({err:.3e})")
+    mesh_mod.destroy()
+    check(not dist.is_initialized(), "parallel: the process group outlived the phase")
+    return {"dp_train": group_counts, "dp_tp_train": tp_counts,
+            "dp_nogroup_train": plain_counts}
 
 
 def prefix_train_run(tmp: str, dataset_dir: str, name: str, fused: int, pallas: int):
@@ -2905,6 +3096,7 @@ def main() -> None:
             lambda: render(append_v2_runs[0], out))
         dataset_dir = make_dataset(tmp, smpl_runs[0])
         paths["train"], device_ms["train"], train_dir = phase_training(tmp, dataset_dir)
+        paths.update(phase_parallel(tmp, dataset_dir))
         paths["inference"] = phase_inference(tmp, dataset_dir, train_dir)
         prefix_paths, prefix_ms = phase_prefix_training(tmp, dataset_dir)
         paths.update(prefix_paths)

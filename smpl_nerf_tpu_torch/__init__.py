@@ -5,12 +5,12 @@ layout and names so each module's counterpart is easy to find. It imports
 torch, numpy and the standard library only — never jax, flax or
 smpl_nerf_tpu.
 
-Covered: every single-device path of the JAX package. Training, rendering,
+Covered: every path of the JAX package. Training, rendering,
 inference and scoring of every --model_type (with the SIREN and dense-grid
 nets, --check_nans, --profile_dir and per-epoch logging), dataset
 generation, distilled-expert serving, the Table-1 baselines and the MLP
-roofline script. Not yet: the parallel layer (--tensor_parallel,
---mesh_shape, --multihost).
+roofline script; and the parallel layer (--mesh_shape, --tensor_parallel,
+--multihost: one process per device on torch.distributed).
   core/       ray math in torch: cameras, rays, positional encoding, coarse &
               inverse-CDF fine sampling, alpha-composite integration, GMM.
   ops/        hand-written Hopper kernels (csrc/*.cu) with their plain
@@ -20,7 +20,9 @@ roofline script. Not yet: the parallel layer (--tensor_parallel,
   models/     RenderRayNet / SirenRenderRayNet / GridNerf / WarpFieldNet,
               SMPL, the estimators, with reference layer names.
   pipelines.py  every family's coarse and fine passes and the net runner.
-  parallel/   ep: stacked voxel experts, bucketed and sorted-tile routing.
+  parallel/   mesh, multihost, tp (the ('data', 'model') mesh, batch rows,
+              width-split trunks), sample_axis, pp, ep (stacked voxel experts:
+              bucketed, sorted-tile and all-to-all routing), dryrun.
   training/   model factory, solver, run-dir checkpoints, per-epoch logging,
               the image-wise and estimator trainers.
   render/     batched and culled rendering, the ray tracer; experts:

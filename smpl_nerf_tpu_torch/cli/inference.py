@@ -42,6 +42,7 @@ from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.data import datasets, gif, png
 from smpl_nerf_tpu_torch.data.datasets import RayData
 from smpl_nerf_tpu_torch.evaluation.scores import print_scores
+from smpl_nerf_tpu_torch.parallel import mesh as mesh_mod
 from smpl_nerf_tpu_torch.pipelines import SMPL_MODEL_FAMILIES
 from smpl_nerf_tpu_torch.render import batched
 from smpl_nerf_tpu_torch.render import fast as fast_mod
@@ -71,6 +72,9 @@ def inference_parser() -> config_mod.ConfigArgumentParser:
                         help="fine-pass cull budget as a fraction of the batch. <=0 "
                              "(default): derive it per dataset from occupancy probe counts "
                              "(inf_fast=2) or use 0.25 (inf_fast=1)")
+    parser.add_argument("--mesh_shape", default=None, type=str,
+                        help="the mesh to render on, in place of the run's own "
+                             "(--mesh_shape= : the whole world on the data axis)")
     parser.add_argument("--device", default=DEFAULT_DEVICE,
                         help="cuda (default) or cpu (the plain PyTorch versions)")
     return parser
@@ -143,6 +147,10 @@ def render_dataset(args, run_dir: str, data: RayData, fast: int = 0, cap_fractio
                    batch_size: Optional[int] = None, device=DEFAULT_DEVICE) -> np.ndarray:
     """Render every image of `data` through the run's weights -> [N, h, w, 3].
 
+    On the run's mesh (args.mesh_shape, as the JAX package reads it): a mesh
+    that does not hold the world raises; across processes every rank calls
+    this and gets the whole render.
+
     fast=1: the foreground-culled renderer (cap_fraction <= 0 means 0.25);
     fast=2: the occupancy-grid renderer, whose budget is derived from probe
     counts over exactly this call's batches when cap_fraction <= 0, and which
@@ -152,8 +160,9 @@ def render_dataset(args, run_dir: str, data: RayData, fast: int = 0, cap_fractio
     if args.model_type == "smpl_estimator":
         raise ValueError("smpl_estimator runs have no render pipeline to render or score "
                          "(training/estimator.load_estimator reads the run)")
+    mesh = mesh_mod.make_mesh(getattr(args, "mesh_shape", "") or "", dev)
     pipeline = batched.build_from_run(run_dir, args, dev, dataset_extras(args, data))
-    bs = int(batch_size or args.batchsize_val)
+    bs = mesh_mod.pad_to_multiple(int(batch_size or args.batchsize_val), mesh.data)
     render_fn = render_fn_per_image = None
     if int(fast) >= 2:
         poses = data.human_poses
@@ -186,7 +195,7 @@ def render_dataset(args, run_dir: str, data: RayData, fast: int = 0, cap_fractio
         render_fn = fast_mod.make_fast_renderer(pipeline,
                                                 cap_fraction if cap_fraction > 0 else 0.25)
     rgb = batched.render_rays_batched(pipeline, data, bs, dev, render_fn=render_fn,
-                              render_fn_per_image=render_fn_per_image)
+                                      render_fn_per_image=render_fn_per_image, mesh=mesh)
     return rgb.reshape(data.num_images, data.h, data.w, 3)
 
 
@@ -209,6 +218,8 @@ def inference(argv: Optional[Sequence[str]] = None) -> dict:
     inf_args, _ = inference_parser().parse_known_args(argv)
     dev = resolve_device(inf_args.device)
     args = setup_from_run_dir(inf_args.inf_run_dir, inf_args.inf_model_type)
+    if inf_args.mesh_shape is not None:
+        args.mesh_shape = inf_args.mesh_shape
     data = datasets.load_dataset(inf_args.inf_ground_truth_dir, args.model_type, args,
                                  device=dev)
     renders = render_dataset(args, inf_args.inf_run_dir, data, fast=int(inf_args.inf_fast),
@@ -253,7 +264,8 @@ def inference_gif(run_dir: str, args, train_data: RayData, val_data: RayData,
                               for data in (train_data, val_data)])
     if order is not None and len(order) == len(renders):
         renders = renders[order]
-    save_rerenders(renders, run_dir, gif_name="inference.gif")
+    if mesh_mod.rank() == 0:
+        save_rerenders(renders, run_dir, gif_name="inference.gif")
     return renders
 
 

@@ -13,8 +13,21 @@ The SMPL-driven families and vertex_sphere get the SMPL model as the JAX
 package picks it (`factory.smpl_model_for`: the procedural human unless a
 licensed pkl is named) before the splits load, because vertex_sphere's
 loader needs it; --use_gmm_loss gets the canonical vertices of that model.
-A flag whose machinery is not ported (`UNPORTED_FLAGS`: the parallel layer's)
-raises when it is set to anything but its default, before any data is loaded.
+
+Parallel runs (parallel/): --mesh_shape lays the world's processes out as a
+('data', 'model') mesh, --tensor_parallel=1 splits the nets' trunks over its
+model axis, and --multihost=1 initialises the process group from torchrun's
+environment (RANK, WORLD_SIZE, MASTER_ADDR / MASTER_PORT, LOCAL_RANK ->
+cuda:LOCAL_RANK; `mesh.init_distributed`) where the JAX package calls
+jax.distributed.initialize(). One process runs per device:
+
+    torchrun --nproc_per_node=2 train_torch.py --multihost=1 --mesh_shape=2 ...
+
+Every rank trains its rows of each batch; rank 0 names the run dir, logs,
+and writes the run (the saves gather tensor-parallel shards on every rank);
+the post-training renders split their batches over the data axis. `main`
+tears the group down at the end. image_wise_dynamic and smpl_estimator have
+trainers of their own that run on one process.
 
 `writer`: where training logs its scalars and per-epoch rerenders
 (`Solver`). When the caller passes none, train() makes a SummaryWriter on the
@@ -44,41 +57,33 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from smpl_nerf_tpu_torch import config as config_mod
 from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.cli.inference import inference_gif
 from smpl_nerf_tpu_torch.data import datasets
 from smpl_nerf_tpu_torch.models import smpl as smpl_mod
-from smpl_nerf_tpu_torch.pipelines import (SMPL_MODEL_FAMILIES, RenderConfig, _not_ported,
-                                           build_pipeline)
+from smpl_nerf_tpu_torch.parallel import mesh as mesh_mod
+from smpl_nerf_tpu_torch.pipelines import SMPL_MODEL_FAMILIES, RenderConfig, build_pipeline
 from smpl_nerf_tpu_torch.training import checkpoints
 from smpl_nerf_tpu_torch.training.factory import (build_models_and_params, dataset_extras,
                                                   smpl_model_for)
 from smpl_nerf_tpu_torch.training.solver import Solver
 
 
-# flags the port accepts for config compatibility but does not act on yet:
-# what the JAX package does with each, and what lifts the guard
-UNPORTED_FLAGS = {
-    "tensor_parallel": "width-sharded nets",
-    "mesh_shape": "a device mesh",
-    "multihost": "multi-host runs",
-}
 TRACE_FILE = "train_trace.json"
 # the families whose run the post-training GIF step re-renders (JAX cli/train.py:132-141)
 GIF_FAMILIES = ("append_smpl_params", "append_to_nerf", "nerf", "smpl_nerf")
 
 
-def _refuse_unported_flags(args, parser) -> None:
-    for flag, what in UNPORTED_FLAGS.items():
-        if getattr(args, flag) != parser.get_default(flag):
-            raise _not_ported(f"--{flag} ({what})")
-
-
 def _default_log_dir(args) -> str:
+    """runs/<stamp>_<experiment_name>, rank 0's name on every rank."""
     stamp = time.strftime("%b%d_%H-%M-%S")
-    return os.path.join("runs", f"{stamp}_{args.experiment_name}")
+    name = [os.path.join("runs", f"{stamp}_{args.experiment_name}")]
+    if mesh_mod.is_distributed():
+        dist.broadcast_object_list(name, src=0)
+    return name[0]
 
 
 def summary_writer(log_dir: str):
@@ -96,7 +101,8 @@ def summary_writer(log_dir: str):
 
 def train_profiled(solver: Solver, train_data, val_data, profile_dir: str,
                    device: torch.device) -> str:
-    """solver.train under torch.profiler; returns the Chrome trace's path."""
+    """solver.train under torch.profiler; returns the Chrome trace's path
+    (rank r > 0 of a process group writes train_trace_rank<r>.json beside it)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -105,7 +111,10 @@ def train_profiled(solver: Solver, train_data, val_data, profile_dir: str,
     with profile(activities=activities) as prof:
         solver.train(train_data, val_data)
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, TRACE_FILE)
+    name = TRACE_FILE
+    if solver.mesh.rank:
+        name = name.replace(".json", f"_rank{solver.mesh.rank}.json")
+    path = os.path.join(profile_dir, name)
     prof.export_chrome_trace(path)
     print("Profiler trace written to", path)
     return path
@@ -121,8 +130,10 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
     args = parser.parse_args(argv)
     if args.model_type not in config_mod.MODEL_TYPES:
         raise ValueError("The model type you stated is unknown")
-    _refuse_unported_flags(args, parser)
     dev = resolve_device(device)
+    if int(args.multihost):
+        dev = mesh_mod.init_distributed(dev)
+    rank0 = mesh_mod.rank() == 0
     seed = int(getattr(args, "seed", 0))
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -135,6 +146,9 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
     extras = dataset_extras(args, train_data)
     log_dir = log_dir or _default_log_dir(args)
 
+    if args.model_type in ("image_wise_dynamic", "smpl_estimator") and mesh_mod.world_size() > 1:
+        raise ValueError(f"{args.model_type} trains on one process; the world has "
+                         f"{mesh_mod.world_size()}")
     if args.model_type == "image_wise_dynamic":
         from smpl_nerf_tpu_torch.training.image_wise import train_image_wise
         return train_image_wise(args, parser, train_data, val_data, extras, log_dir,
@@ -148,7 +162,7 @@ def train(argv: Optional[Sequence[str]] = None, log_dir: Optional[str] = None,
         print("Models loaded from", args.load_run)
 
     os.makedirs(log_dir, exist_ok=True)
-    own_writer = writer is None
+    own_writer = writer is None and rank0      # rank 0 logs
     if own_writer:
         writer = summary_writer(log_dir)
     try:
@@ -180,8 +194,9 @@ def _train_models(args, parser, train_data, val_data, extras, models, encoders,
         train_profiled(solver, train_data, val_data, args.profile_dir, dev)
     else:
         solver.train(train_data, val_data)
-    checkpoints.save_run(log_dir, solver.run_state_dicts(), args, parser, args.dataset_dir)
-    print("Run saved under", log_dir)
+    solver.save_run(log_dir, args.dataset_dir)
+    if solver.mesh.rank == 0:
+        print("Run saved under", log_dir)
     if int(args.render_gif) and args.model_type in GIF_FAMILIES:
         # the reference renders the whole train + val distribution after
         # training (train.py:183,203 -> inference.py:35-110)
@@ -194,7 +209,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Solver:
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="cuda (default) or cpu (the plain PyTorch versions)")
     own, rest = p.parse_known_args(argv)
-    return train(rest, device=own.device)
+    try:
+        return train(rest, device=own.device)
+    finally:
+        mesh_mod.destroy()
 
 
 if __name__ == "__main__":

@@ -252,11 +252,11 @@ def config_parser() -> ConfigArgumentParser:
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         help="float32|bfloat16 compute precision for MLP matmuls")
     parser.add_argument("--tensor_parallel", type=int, default=0,
-                        help="not ported yet: training raises when it is set (width-sharded "
-                             "nets come with the parallel layer)")
+                        help="1: split the nets' trunk layers over the mesh's model axis "
+                             "(with a model axis > 1, e.g. --mesh_shape=4,2)")
     parser.add_argument("--mesh_shape", type=str, default="",
-                        help="not ported yet: training raises when it is set (the port runs "
-                             "on one device)")
+                        help="'' (all processes on the data axis), 'd' or 'd,m': the "
+                             "(data, model) mesh; it must hold every process")
     parser.add_argument("--use_pallas", type=int, default=1,
                         help="1: fine sampling through the sample_pdf CUDA kernel on the GPU")
     parser.add_argument("--use_fused_mlp", type=int, default=0,
@@ -292,8 +292,9 @@ def config_parser() -> ConfigArgumentParser:
                         help="write a torch.profiler Chrome trace of the training "
                              "(train_trace.json) into this directory")
     parser.add_argument("--multihost", type=int, default=0,
-                        help="not ported yet: training raises when it is set (the port "
-                             "runs on one host)")
+                        help="1: one process per device under torchrun: initialise the "
+                             "process group from its environment (NCCL on CUDA, gloo on "
+                             "the CPU)")
     parser.add_argument("--render_gif", type=int, default=1,
                         help="re-render train+val into <run>/img_XXX.png and "
                              "<run>/inference.gif after training (nerf, smpl_nerf and the "

@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from smpl_nerf_tpu_torch.core import integrate
+
 
 def coarse_bins(near: float, far: float, number_samples: int, device=None) -> torch.Tensor:
     """Disparity-linear bin centers [S]."""
@@ -43,8 +45,7 @@ def coarse_sampling(ray_translation: torch.Tensor, ray_direction: torch.Tensor,
     lower = torch.cat([z[:1], mids], -1)
     batch_shape = ray_translation.shape[:-1]
     if generator is not None:
-        jitter = torch.rand(batch_shape + (1,), generator=generator,
-                            device=generator.device).to(device)
+        jitter = integrate.draw(torch.rand, batch_shape + (1,), generator).to(device)
     else:
         jitter = torch.full(batch_shape + (1,), 0.5, device=device)
     z_vals = lower + (upper - lower) * jitter

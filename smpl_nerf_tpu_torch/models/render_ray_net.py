@@ -40,9 +40,29 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-def _linear(in_dim: int, out_dim: int, device) -> nn.Linear:
+class Dense(nn.Linear):
+    """nn.Linear whose product rounds as flax's Dense does (`dense`).
+
+    `full_weight` / `full_bias` are the whole [out, in] weight and bias that
+    the fused kernels take. parallel/tp.py splits a trunk layer by swapping
+    in a subclass that overrides the three."""
+
+    def dense(self, h: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+        if compute_dtype == torch.float32:
+            return F.linear(h, self.weight, self.bias)
+        y = torch.matmul(h.to(compute_dtype), self.weight.to(compute_dtype).t())
+        return y + self.bias.to(compute_dtype)
+
+    def full_weight(self) -> torch.Tensor:
+        return self.weight
+
+    def full_bias(self) -> torch.Tensor:
+        return self.bias
+
+
+def _linear(in_dim: int, out_dim: int, device) -> Dense:
     # no torch-default init here: reset_parameters draws from a generator
-    return nn.utils.skip_init(nn.Linear, in_dim, out_dim,
+    return nn.utils.skip_init(Dense, in_dim, out_dim,
                               device="cpu" if device is None else device)
 
 
@@ -79,12 +99,9 @@ def init_uniform_(layer: nn.Linear, bound: float,
         layer.bias.zero_()
 
 
-def dense(layer: nn.Linear, h: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Linear with flax Dense rounding at `compute_dtype`."""
-    if compute_dtype == torch.float32:
-        return F.linear(h, layer.weight, layer.bias)
-    y = torch.matmul(h.to(compute_dtype), layer.weight.to(compute_dtype).t())
-    return y + layer.bias.to(compute_dtype)
+def dense(layer: Dense, h: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Linear with flax Dense rounding at `compute_dtype` (`Dense.dense`)."""
+    return layer.dense(h, compute_dtype)
 
 
 class RenderRayNet(nn.Module):

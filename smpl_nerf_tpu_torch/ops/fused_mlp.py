@@ -92,12 +92,16 @@ def _module_layer(net: torch.nn.Module, name: str) -> torch.nn.Linear:
 
 
 def flatten_params(spec: MlpSpec, net: torch.nn.Module) -> Tuple[torch.Tensor, ...]:
-    """RenderRayNet -> flat (kernel [in, out], bias) * layers, in _param_order."""
+    """RenderRayNet -> flat (kernel [in, out], bias) * layers, in _param_order.
+
+    Each layer gives its whole weight (`Dense.full_weight`: a layer that
+    --tensor_parallel split gathers it, and its gradient goes back to the
+    shard), since the kernels take the whole net."""
     flat = []
     for name in _param_order(spec):
         layer = _module_layer(net, name)
-        flat.append(layer.weight.t())
-        flat.append(layer.bias)
+        flat.append(layer.full_weight().t())
+        flat.append(layer.full_bias())
     return tuple(flat)
 
 

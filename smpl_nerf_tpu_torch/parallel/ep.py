@@ -27,7 +27,13 @@ out-of-range index, and a CUDA scatter with duplicate indices is unordered,
 so the duplicates are confined to the spare slot and real slots stay unique.
 Index tensors are int64; `TilePlan.tile_expert` is int32, as the kernel reads it.
 
-`expert_parallel_apply` (the sharded all_to_all form) is not ported yet.
+`expert_parallel_apply` is the sharded form over a mesh axis: tokens and
+experts split over the axis, tokens routed to the rank that owns their expert
+in capacity-bounded buckets, two all_to_alls (there and back), the same skip
+and overflow contract. One process per device: each rank passes its own
+tokens, and the stacked experts whole (as JAX's global arrays); it evaluates
+its own block of them, and the experts' gradient comes back whole on every
+rank (summed over the axis), as the pipeline's does (parallel/pp.py).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 
 class ExpertMLP(NamedTuple):
@@ -243,3 +250,70 @@ def expert_apply_tiled(experts: ExpertMLP, x: torch.Tensor, expert_ids: torch.Te
     plan = sorted_tile_plan(expert_ids, experts.w0.shape[0], budget, tile)
     out_slots = tiles_apply(experts, x[plan.tok], plan, compute_dtype=compute_dtype)
     return EPResult(plan_take(plan, out_slots), plan.overflow)
+
+
+class _AllToAll(torch.autograd.Function):
+    """all_to_all over dim 0 ([n, ...]: block i goes to rank i, block i of the
+    result came from rank i); its transpose is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    ins = list(t.contiguous().unbind(0))
+    outs = [torch.empty_like(b) for b in ins]
+    dist.all_to_all(outs, [b.contiguous() for b in ins], group=group)
+    return torch.stack(outs)
+
+
+def expert_parallel_apply(mesh, experts: ExpertMLP, x: torch.Tensor, expert_ids: torch.Tensor,
+                          capacity: int, axis: str = "model") -> EPResult:
+    """MoE-routed expert evaluation with experts and tokens split over `axis`.
+
+    x [N_l, D] / expert_ids [N_l]: this rank's tokens; experts: the stacked
+    experts whole [E, ...], of which rank j evaluates block j (E / n of them).
+    `capacity` bounds the tokens per (source rank, expert) bucket; E must
+    divide by the axis size. Tokens with expert_ids == E are skipped (zero
+    output, overflow False, no capacity); tokens past the capacity come back
+    flagged in `overflow` with zero output. Returns this rank's tokens.
+    Ranking within a bucket is expert_apply_bucketed's sort / searchsorted.
+    """
+    from smpl_nerf_tpu_torch.parallel import tp
+    group, j, n = mesh.axis(axis)
+    E = experts.w0.shape[0]
+    n_l, D = x.shape
+    O = experts.w1.shape[-1]
+    if E % n:
+        raise ValueError(f"E={E} and N={n_l * n} must divide the {n}-way axis")
+    e_local, C = E // n, int(capacity)
+    if group is not None:      # the experts' gradient summed over the axis: whole everywhere
+        experts = ExpertMLP(*(tp.copy_to_model(w, group) for w in experts))
+    own = ExpertMLP(*(w[j * e_local:(j + 1) * e_local] for w in experts))
+    device = x.device
+    ids = expert_ids.long()
+    sorted_ids, order = torch.sort(ids, stable=True)
+    starts = torch.searchsorted(sorted_ids, torch.arange(E, device=device))
+    pos_sorted = torch.arange(n_l, device=device) - starts[torch.clamp(sorted_ids, 0, E - 1)]
+    pos = torch.zeros((n_l,), dtype=torch.int64, device=device).index_put((order,), pos_sorted)
+    skip = ids >= E
+    keep = (pos < C) & ~skip
+    slot_e = torch.where(keep, ids, torch.full_like(ids, E))       # E = spare row
+    slot_c = torch.clamp(pos, 0, C - 1)
+    buckets = torch.zeros((E + 1, C, D), dtype=x.dtype, device=device)
+    buckets = buckets.index_put((slot_e, slot_c), x)[:E]
+    send = buckets.reshape(n, e_local, C, D)
+    recv = send if group is None else _AllToAll.apply(send, group)   # [n, e_local, C, D]
+    toks = recv.transpose(0, 1).reshape(e_local, n * C, D)
+    out_tok = _mlp(toks, *own)                                       # [e_local, n*C, O]
+    back = out_tok.reshape(e_local, n, C, O).transpose(0, 1)
+    got = back if group is None else _AllToAll.apply(back, group)    # [n, e_local, C, O]
+    got = got.reshape(E, C, O)
+    out = got[torch.clamp(slot_e, 0, E - 1), slot_c] * keep[:, None].to(x.dtype)
+    return EPResult(out, ~keep & ~skip)

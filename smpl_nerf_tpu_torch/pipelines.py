@@ -184,10 +184,6 @@ def warp_field_inputs(cfg: RenderConfig, encoders, samples: torch.Tensor,
     return torch.cat([sample_feat.reshape(R * S, -1), pose_exp.reshape(R * S, -1)], -1)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet to smpl_nerf_tpu_torch")
-
-
 def resolve_fused_mode_auto(spec, pos_enc, dir_enc, device: torch.device) -> int:
     """--use_fused_mlp=-1 (auto), as JAX's resolver picks on its accelerator:
     the fused v2 kernel for the prefix-free nets it takes, else the plain net.

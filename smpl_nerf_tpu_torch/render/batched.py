@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from smpl_nerf_tpu_torch.data.datasets import RayData
+from smpl_nerf_tpu_torch.parallel import mesh as mesh_mod
+from smpl_nerf_tpu_torch.parallel import multihost
 from smpl_nerf_tpu_torch.pipelines import Pipeline, RenderConfig, build_pipeline
 from smpl_nerf_tpu_torch.training import checkpoints
 from smpl_nerf_tpu_torch.training.factory import build_models_and_params
@@ -61,13 +63,18 @@ def padded_rows(lo: int, hi: int, batch_size: int, device=None) -> torch.Tensor:
 @torch.no_grad()
 def render_rays_batched(pipeline: Pipeline, data: RayData, batch_size: int,
                         device: torch.device, render_fn: Optional[Callable] = None,
-                        render_fn_per_image: Optional[Callable] = None) -> np.ndarray:
+                        render_fn_per_image: Optional[Callable] = None,
+                        mesh: Optional[mesh_mod.Mesh] = None) -> np.ndarray:
     """rgb_fine [N, 3] of every ray of `data`, on the host.
 
     render_fn: batch -> rgb [batch_size, 3] in place of the pipeline.
     render_fn_per_image: image index -> such a render_fn; batches then never
-    mix two images' rays.
+    mix two images' rays. mesh: split each batch's rows over its data axis.
     """
+    mesh = mesh or mesh_mod.Mesh()
+    batch_size = mesh_mod.pad_to_multiple(batch_size, mesh.data)
+    lo_r, hi_r = (multihost.local_row_range(mesh, batch_size) if mesh.distributed
+                  else (0, batch_size))
     cfg = getattr(pipeline, "cfg", None)        # any batch -> outputs callable renders
     arrays = {k: torch.as_tensor(v, device=device)
               for k, v in data.batch_arrays(cfg.model_type if cfg else "nerf").items()}
@@ -83,8 +90,12 @@ def render_rays_batched(pipeline: Pipeline, data: RayData, batch_size: int,
             if cfg is not None and cfg.images_per_batch:
                 check_batch_images(cfg, padded_rows(lo, hi, batch_size).numpy(),
                                    data.image_indices, arrays)
-            batch = gather_batch(arrays, padded_rows(lo, hi, batch_size, device))
-            rgb = fn(batch) if fn is not None else pipeline(batch)["rgb_fine"]
+            rows = padded_rows(lo, hi, batch_size, device)
+            if fn is not None:
+                rgb = fn(gather_batch(arrays, rows))
+            else:
+                rgb = pipeline(gather_batch(arrays, rows[lo_r:hi_r]))["rgb_fine"]
+                rgb = multihost.all_gather_rows(rgb, mesh)
             out[lo:hi] = rgb[:hi - lo]
     return out.cpu().numpy()
 

@@ -34,8 +34,25 @@ loss/train, loss/val and perf/rays_per_sec, and re-renders the first
 --number_validation_images val images whole: the GT-vs-rerender grid (with
 the warp magnitude for the warp families), the warp point cloud at the
 --mesh_epochs fractions, and the first image's first batch of density
-samples as vedo_data (training/logging.py). Not ported yet: tensor / mesh /
-multi-host parallelism.
+samples as vedo_data (training/logging.py).
+
+Parallel training (parallel/): the solver runs on a ('data', 'model') mesh
+(--mesh_shape; one process per device, parallel/mesh.py). Without a process
+group it is the single-device code above. With one, every rank draws the
+same global batch indices from the same numpy stream (the batch padded to a
+multiple of the data axis, as JAX pads it), takes its own rows
+(multihost.local_row_range), and draws jitter and sigma noise for the whole
+global batch before keeping its rows (integrate.RowDraws), so the world size
+does not change the numbers. Each rank's loss is its share of the global mean
+(its rows over the global rows); the gradients are summed over the data
+group, and so are the losses that are reported. Validation all-reduces the
+masked sum and the mask count, never local means; per-epoch rerenders
+all-gather the ranks' rows. Every rank starts from rank 0's weights.
+--tensor_parallel=1 with a model axis > 1 splits the trunk layers over the
+model group (parallel/tp.py); Adam and the EMA run on the shards, and the run
+dir and the resume state hold whole tensors (gathered on save, cut on
+restore). A resume learns from rank 0 whether train_state.pt exists, and its
+bytes (checkpoints.broadcast_file), so every rank takes the same branch.
 """
 from __future__ import annotations
 
@@ -49,6 +66,9 @@ import numpy as np
 import torch
 
 from smpl_nerf_tpu_torch.core.gmm import GaussianMixture
+from smpl_nerf_tpu_torch.core.integrate import RowDraws
+from smpl_nerf_tpu_torch.parallel import mesh as mesh_mod
+from smpl_nerf_tpu_torch.parallel import multihost, tp
 from smpl_nerf_tpu_torch.pipelines import DYNAMIC_FAMILIES, Pipeline, get_pose_table
 from smpl_nerf_tpu_torch.training import checkpoints
 from smpl_nerf_tpu_torch.training import logging as log_mod
@@ -291,7 +311,7 @@ class Solver:
 
     def __init__(self, pipeline: Pipeline, args, log_dir: Optional[str] = None,
                  parser=None, frozen_nerf: bool = False, canonical_vertices=None,
-                 writer=None):
+                 writer=None, mesh: Optional[mesh_mod.Mesh] = None):
         self.pipeline = pipeline
         self.models = pipeline.models
         self.args = args
@@ -299,8 +319,20 @@ class Solver:
         self.log_dir = log_dir
         self.writer = writer
         self.device = next(self.models["model_coarse"].parameters()).device
+        self.mesh = mesh if mesh is not None else mesh_mod.make_mesh(
+            getattr(args, "mesh_shape", "") or "", self.device)
+        self.n_data = self.mesh.data
+        self.tensor_parallel = (int(getattr(args, "tensor_parallel", 0) or 0) > 0
+                                and self.mesh.model > 1)
         for model in self.models.values():
             model.requires_grad_(True)
+        # every rank trains from rank 0's weights, split over the model group
+        # under tensor parallelism (before the optimizer takes the parameters)
+        multihost.put_replicated({name: m.state_dict() for name, m in self.models.items()},
+                                 self.mesh)
+        self.tp_dims = tp.place_params_tp(self.models, self.mesh) if self.tensor_parallel else {}
+        # the rerenders are collective: every rank runs them when rank 0 logs
+        self.rerenders = bool(multihost.from_rank0(writer is not None, self.mesh))
         self.loss_fn = make_loss_fn(pipeline, canonical_vertices)
         self.optimizer = make_optimizer(self.models, args, args.model_type, frozen_nerf)
         self.global_step = 0
@@ -369,11 +401,25 @@ class Solver:
                 self.ema_params[name][key].mul_(d).add_(p.detach(), alpha=1.0 - d)
 
     # -------------------------------------------------------------- steps
-    def train_step(self, batch, generator: Optional[torch.Generator] = None) -> dict:
-        """grad -> optimizer update (-> EMA); returns the loss terms."""
+    def train_step(self, batch, generator=None, share: Optional[float] = None) -> dict:
+        """grad -> optimizer update (-> EMA); returns the loss terms.
+
+        share: this rank's rows over the global batch's, on a mesh with a
+        process group: the loss is scaled by it, and the gradients and the
+        returned losses are summed over the data group (the global means)."""
         self.optimizer.zero_grad()
         loss, aux = self.loss_fn(batch, generator, True)
-        loss.backward()
+        if share is None:
+            loss.backward()
+        else:
+            (loss * share).backward()
+            grads = [p.grad for m in self.models.values() for p in m.parameters()
+                     if p.grad is not None]
+            multihost.all_reduce_flat(grads, self.mesh.data_group)
+            terms = list(aux)
+            sums = torch.stack([aux[k].detach().float() * share for k in terms])
+            multihost.all_reduce_flat([sums], self.mesh.data_group)
+            aux = dict(zip(terms, sums.unbind(0)))
         self.optimizer.step()
         if self.ema_params is not None:
             self._update_ema()
@@ -392,20 +438,58 @@ class Solver:
         return gather_batch(arrays, torch.as_tensor(np.asarray(idx), dtype=torch.long,
                                                     device=self.device))
 
+    def local_rows(self, n: int) -> tuple:
+        """[lo, hi) of an n-row global batch that this rank computes."""
+        return multihost.local_row_range(self.mesh, n) if self.mesh.distributed else (0, n)
+
+    def draws(self, n: int):
+        """The jitter / noise generator of an n-row global batch: on a mesh
+        with a group, the global rows' draws of which this rank keeps its own."""
+        if not self.mesh.distributed or self.generator is None:
+            return self.generator
+        return RowDraws(self.generator, *self.local_rows(n), n)
+
     # -------------------------------------------------------------- resume
+    def save_run(self, run_dir: str, dataset_dir: Optional[str] = None) -> None:
+        """The run dir of `run_state_dicts` (whole tensors; call on every rank)."""
+        checkpoints.save_run(run_dir, self.run_state_dicts(), self.args, self.parser,
+                             dataset_dir, mesh=self.mesh, dims=self.tp_dims)
+
+    def _train_state_dims(self) -> dict:
+        """Which leaves of the resume state are tensor-parallel shards (dim 0)."""
+        if not self.tp_dims:
+            return {}
+        dims = {id(p): self.tp_dims[name].get(key) for name, m in self.models.items()
+                for key, p in m.named_parameters()}
+        state = {}
+        if self.optimizer.optimizer is not None:
+            order = [p for g in self.optimizer.optimizer.param_groups for p in g["params"]]
+            state = {i: {"exp_avg": d, "exp_avg_sq": d, "max_exp_avg_sq": d}
+                     for i, p in enumerate(order) if (d := dims.get(id(p))) is not None}
+        return {"optimizer": {"optimizer": {"state": state}}, "ema": self.tp_dims,
+                "raw": self.tp_dims}
+
     def save_train_state(self, run_dir: str, epoch: int, best_val: float) -> None:
         checkpoints.save_train_state(
             run_dir, self.optimizer.state_dict(), self.ema_params, epoch,
             raw_params=self.raw_state_dicts() if self.ema_params is not None else None,
-            best_val=best_val)
+            best_val=best_val, mesh=self.mesh, dims=self._train_state_dims())
 
     def restore_train_state(self, run_dir: str) -> bool:
         """Restore optimizer moments (+ EMA shadow + raw weights + epoch and
         best-val accounting) saved by save_train_state; False when the run
-        directory has none (weights-only resume)."""
-        state = checkpoints.load_train_state(run_dir, self.device)
+        directory has none (weights-only resume). Across processes every rank
+        learns existence and bytes from rank 0 (`broadcast_file`) before any
+        other collective, so all take the same branch."""
+        data = None
+        if mesh_mod.is_distributed():
+            data = checkpoints.broadcast_file(os.path.join(run_dir, checkpoints.TRAIN_STATE))
+            if data is None:
+                return False
+        state = checkpoints.load_train_state(run_dir, self.device, data=data)
         if state is None:
             return False
+        state = tp.shard_tree(state, self.mesh, self._train_state_dims())
         self.optimizer.load_state_dict(state["optimizer"])
         if state.get("ema") is not None and self.ema_params is not None:
             for name, params in self.ema_params.items():
@@ -435,7 +519,7 @@ class Solver:
         # split's table (image_indices are split-local)
         self._val_goal_poses = getattr(val_data, "human_poses", None)
         n = train_data.num_rays
-        bs = int(args.batchsize)
+        bs = mesh_mod.pad_to_multiple(int(args.batchsize), self.n_data)
         steps_per_epoch = int(getattr(args, "steps_per_epoch", 0)) or max(1, n // bs)
         # resumed runs continue the global-step / epoch numbering
         self.global_step = max(self.global_step, self.epoch_offset * steps_per_epoch)
@@ -462,7 +546,7 @@ class Solver:
         n_img = train_data.num_images
         hw = n // max(1, n_img)
         ipb = ipb if 0 < ipb < n_img else 0
-        bs_val = int(args.batchsize_val)
+        bs_val = mesh_mod.pad_to_multiple(int(args.batchsize_val), self.n_data)
         if ipb and model_type in DYNAMIC_FAMILIES and bs_val > max(1, ipb - 1) * hw:
             # sequential validation batches must fit inside K images too
             # (check_batch_images catches the strided cases per batch)
@@ -505,7 +589,9 @@ class Solver:
                     if len(idx) < bs:  # wrap around for tiny datasets
                         idx = np.concatenate([idx, perm[:bs - len(idx)]])
                 t_step = time.perf_counter()
-                aux = self.train_step(self.gather(arrays, idx), self.generator)
+                lo, hi = self.local_rows(bs)
+                share = {"share": (hi - lo) / bs} if self.mesh.distributed else {}
+                aux = self.train_step(self.gather(arrays, idx[lo:hi]), self.draws(bs), **share)
                 epoch_losses.append(float(aux["loss"]))   # synchronises the device
                 self.step_seconds.append(time.perf_counter() - t_step)
                 self.global_step += 1
@@ -533,12 +619,13 @@ class Solver:
             print(f"[epoch {self.epoch_offset + epoch}] train {train_loss:.5f} "
                   f"val {val_loss:.5f} psnr {mse2psnr(max(val_loss / 2, 1e-10)):.2f} "
                   f"({rays_per_sec:,.0f} rays/s)")
-            if self.writer is not None:
+            if self.rerenders:
                 self._log_rerenders(val_arrays, val_data, epoch)
             if callback is not None:
                 callback(self, epoch)
             if self.log_dir:
-                checkpoints.save_run(self.log_dir, self.run_state_dicts(), args, self.parser)
+                # every rank: the saves gather tensor-parallel shards; rank 0 writes
+                self.save_run(self.log_dir)
                 # machine-readable per-epoch curve (absolute epoch numbering
                 # survives --load_run resumes)
                 self.val_curve.append({
@@ -546,8 +633,9 @@ class Solver:
                     "train_loss": float(train_loss), "val_loss": float(val_loss),
                     "psnr_estimate": float(mse2psnr(max(val_loss / 2, 1e-10))),
                     "rays_per_sec": round(rays_per_sec, 1)})
-                with open(os.path.join(self.log_dir, "val_curve.json"), "w") as fh:
-                    json.dump(self.val_curve, fh, indent=1)
+                if self.mesh.rank == 0:
+                    with open(os.path.join(self.log_dir, "val_curve.json"), "w") as fh:
+                        json.dump(self.val_curve, fh, indent=1)
                 # full-fidelity resume state: a run cut mid-way resumes
                 # without restarting Adam cold
                 self.save_train_state(self.log_dir, self.epoch_offset + epoch,
@@ -556,8 +644,7 @@ class Solver:
                 # noisy under sigma noise, so the final epoch can regress)
                 if val_loss <= min(self.history["val_loss"] + [self.best_val]):
                     self.best_val = val_loss
-                    checkpoints.save_run(os.path.join(self.log_dir, "best"),
-                                         self.run_state_dicts(), args, self.parser)
+                    self.save_run(os.path.join(self.log_dir, "best"))
         return self.models
 
     def _validate(self, val_arrays, n_val: int, epoch: int = 0, full: bool = False) -> float:
@@ -578,9 +665,10 @@ class Solver:
                                  n_val - 1).astype(np.int64)
         else:
             all_idx = np.arange(n_val, dtype=np.int64)
-        bs = int(self.args.batchsize_val)
+        bs = mesh_mod.pad_to_multiple(int(self.args.batchsize_val), self.n_data)
         img_idx = (val_arrays["image_indices"].cpu().numpy()
                    if self.pipeline.cfg.images_per_batch else None)
+        r_lo, r_hi = self.local_rows(bs)
         total, weight = 0.0, 0.0
         with self._eval_weights(), swap_pose_table(self.models,
                                                    getattr(self, "_val_goal_poses", None)):
@@ -593,8 +681,17 @@ class Solver:
                     check_batch_images(self.pipeline.cfg, idx, img_idx, val_arrays)
                 mask = torch.zeros(bs, dtype=torch.float32, device=self.device)
                 mask[:n_real] = 1.0
-                aux = self.eval_step(self.gather(val_arrays, idx), mask)
-                total += float(aux["loss"]) * n_real
+                mask = mask[r_lo:r_hi]
+                aux = self.eval_step(self.gather(val_arrays, idx[r_lo:r_hi]), mask)
+                loss = aux["loss"]
+                if self.mesh.distributed:
+                    # the global masked mean: sum and count over the data
+                    # group (a rank whose rows are all pads adds 0 and 0)
+                    count = mask.sum()
+                    sums = torch.stack([loss.float() * count, count])
+                    multihost.all_reduce_flat([sums], self.mesh.data_group)
+                    loss = sums[0] / sums[1]
+                total += float(loss) * n_real
                 weight += n_real
         return total / weight if weight else float("nan")
 
@@ -613,7 +710,9 @@ class Solver:
         if n_img <= 0:
             return
         hw = val_data.h * val_data.w
-        bs = min(hw, 4096)
+        bs = mesh_mod.pad_to_multiple(min(hw, 4096), self.n_data)
+        r_lo, r_hi = self.local_rows(bs)
+        rank0 = self.mesh.rank == 0
         mesh_epochs = {int(float(f) * int(self.args.num_epochs))
                        for f in getattr(self.args, "mesh_epochs", []) or []}
         warp_cloud = epoch in mesh_epochs
@@ -627,8 +726,9 @@ class Solver:
                     take = len(idx)
                     if take < bs:
                         idx = np.concatenate([idx, np.full(bs - take, idx[-1])])
-                    out = self.pipeline(self.gather(val_arrays, idx), None, False)
-                    out = {k: out[k][:take].float().cpu().numpy()
+                    out = self.pipeline(self.gather(val_arrays, idx[r_lo:r_hi]), None, False)
+                    out = {k: multihost.all_gather_rows(out[k], self.mesh)[:take]
+                           .float().cpu().numpy()
                            for k in ("rgb_fine", "densities", "ray_samples", "warp") if k in out}
                     rgb_img.append(out["rgb_fine"])
                     if "warp" in out:
@@ -636,13 +736,15 @@ class Solver:
                     if lo == i * hw and "densities" in out and "ray_samples" in out:
                         densities.append(out["densities"])
                         samples.append(out["ray_samples"])
-                        if warp_cloud and "warp" in out and i == 0:
+                        if warp_cloud and "warp" in out and i == 0 and rank0:
                             log_mod.tensorboard_warps(self.writer, self.global_step,
                                                       out["ray_samples"], out["warp"])
                 renders.append(np.concatenate(rgb_img).reshape(val_data.h, val_data.w, 3))
                 gts.append(val_data.rgb[i * hw:(i + 1) * hw].reshape(val_data.h, val_data.w, 3))
                 if warp_img:
                     warps.append(np.concatenate(warp_img).reshape(val_data.h, val_data.w))
+        if not rank0:
+            return
         log_mod.tensorboard_rerenders(self.writer, n_img, np.stack(renders), np.stack(gts),
                                       self.global_step, np.stack(warps) if warps else None)
         if self.log_dir and densities:

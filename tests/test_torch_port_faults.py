@@ -3,11 +3,13 @@
 `checkpoints.save_run` copies the dataset's create_dataset_config.txt into the
 run directory as the JAX package's does (serving reads the frame order back
 from it), byte for byte, and writes none where the dataset has none. The
-training flags whose machinery is not ported raise, naming the flag, before
-any data is loaded, as do the model types not ported yet (smpl, warp,
-vertex_sphere, smpl_estimator); `--render_gif` (on by default) re-renders train + val into
-<run_dir>/inference.gif and img_XXX.png, and nothing when it is 0. Sizes: a
-4x4 two-view dataset, one step of 2x16 nets.
+parallel flags train at world 1: --mesh_shape=1 / 1,1 and --tensor_parallel=1
+as a plain run, --multihost=1 in a world-1 gloo group, and a mesh larger than
+the world raises JAX's make_mesh message. The model types once refused (smpl,
+warp, vertex_sphere, smpl_estimator) train; `--render_gif` (on by default)
+re-renders train + val into <run_dir>/inference.gif and img_XXX.png, and
+nothing when it is 0. Sizes: a 4x4 two-view dataset, one or two steps of 2x16
+nets.
 """
 import os
 
@@ -91,26 +93,64 @@ def test_train_saves_the_dataset_config_and_says_the_gif_step_is_skipped(
         assert not os.path.exists(gif_path) and pngs == []
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("mesh_shape", "8"), ("tensor_parallel", "1"), ("mesh_shape", "4,2"), ("multihost", "1")])
-def test_an_unported_flag_raises_before_any_data_is_loaded(tmp_path, monkeypatch, flag, value):
-    def no_loading(*args, **kwargs):
-        raise AssertionError("a dataset was loaded before the flag was refused")
+@pytest.mark.parametrize("flag", ["--mesh_shape=1", "--mesh_shape=1,1", "--tensor_parallel=1"])
+def test_a_parallel_flag_trains_two_steps_at_world_1(rng, tmp_path, flag):
+    """Without a process group the mesh is one device: each flag trains as a
+    plain run does (the same two step losses)."""
+    data_dir = _dataset(rng, str(tmp_path / "data"), False)
+    plain = train_cli.train(_train_argv(data_dir, "--steps_per_epoch=2", "--render_gif=0"),
+                            log_dir=str(tmp_path / "plain"), device="cpu")
+    got = train_cli.train(_train_argv(data_dir, "--steps_per_epoch=2", "--render_gif=0", flag),
+                          log_dir=str(tmp_path / "run"), device="cpu")
+    assert (got.mesh.data, got.mesh.model, got.mesh.distributed) == (1, 1, False)
+    assert len(got.history["step_loss"]) == 2
+    assert got.history["step_loss"] == plain.history["step_loss"]
+    assert os.path.exists(tmp_path / "run" / "model_coarse.pt")
 
-    monkeypatch.setattr(datasets, "load_dataset", no_loading)
-    argv = _train_argv(str(tmp_path / "no_such_dataset"), f"--{flag}={value}")
-    with pytest.raises(NotImplementedError, match=f"--{flag} .*not ported yet"):
-        train_cli.train(argv, log_dir=str(tmp_path / "run"), device="cpu")
-    assert not (tmp_path / "run").exists()
+
+def test_multihost_trains_two_steps_in_a_world_1_gloo_group(rng, tmp_path, monkeypatch):
+    """--multihost=1 initialises the group from torchrun's environment (here a
+    world of 1 on a loopback rendezvous) and trains on it: the mesh's
+    collectives run, and the steps equal a plain run's."""
+    import socket
+
+    import torch.distributed as dist
+    from smpl_nerf_tpu_torch.parallel import mesh as mesh_mod
+
+    data_dir = _dataset(rng, str(tmp_path / "data"), False)
+    plain = train_cli.train(_train_argv(data_dir, "--steps_per_epoch=2", "--render_gif=0"),
+                            log_dir=str(tmp_path / "plain"), device="cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for key, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(key, value)
+    try:
+        got = train_cli.train(_train_argv(data_dir, "--steps_per_epoch=2", "--render_gif=1",
+                                          "--multihost=1"),
+                              log_dir=str(tmp_path / "run"), device="cpu")
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert got.mesh.distributed and (got.mesh.data, got.mesh.model) == (1, 1)
+    finally:
+        mesh_mod.destroy()
+    assert not dist.is_initialized()
+    np.testing.assert_allclose(got.history["step_loss"], plain.history["step_loss"], rtol=1e-6)
+    assert os.path.exists(tmp_path / "run" / "inference.gif")
 
 
-def test_the_unported_flags_at_their_defaults_pass_the_guard():
-    parser = port_config.config_parser()
-    args = parser.parse_args(["--config=/dev/null", "--check_nans=0", "--images_per_batch=2",
-                              "--use_gmm_loss=1", "--tensor_parallel=0", "--mesh_shape=",
-                              "--multihost=0"])
-    train_cli._refuse_unported_flags(args, parser)
-    assert set(train_cli.UNPORTED_FLAGS) == {"tensor_parallel", "mesh_shape", "multihost"}
+@pytest.mark.parametrize("shape", ["4,2", "8"])
+def test_a_mesh_larger_than_the_world_raises_the_make_mesh_message(rng, tmp_path, shape):
+    from smpl_nerf_tpu.parallel import mesh as jax_mesh
+    import jax
+
+    with pytest.raises(ValueError) as want:
+        jax_mesh.make_mesh(shape, jax.devices()[:1])
+    data_dir = _dataset(rng, str(tmp_path / "data"), False)
+    with pytest.raises(ValueError) as got:
+        train_cli.train(_train_argv(data_dir, f"--mesh_shape={shape}"),
+                        log_dir=str(tmp_path / "run"), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("model_type", ["smpl", "warp", "vertex_sphere", "smpl_estimator"])
