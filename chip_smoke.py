@@ -33,7 +33,10 @@ unguarded, so that any failure exits non-zero:
      H=32, O=4, tile 256, in bf16 and in float32; its headline numbers come
      from phase 10, on the plan of a chunk that the distill path serves) and F
      (relu-matmul at n=131,072, W=256/512/1024, beside the library call
-     torch.relu(x @ w)); then A, B, C and D at a culled fine pass's shapes (K =
+     torch.relu(x @ w)); A, B and D also at the shapes of phase 10b's
+     whole-image 256^2 batch (A at R = 65,536, B at 12,582,912 rows, D at
+     8,388,608 rows of 705 floats; timed over 5 calls: by_rays / by_rows);
+     then A, B, C and D at a culled fine pass's shapes (K =
      711 rays of a 2048-ray batch: K, K*64, K*128 and K*192 rows, none a
      multiple of a tile), under the same bounds, except that C's dX max is
      taken against the float64 gradient of the same rounded forward, on three
@@ -181,6 +184,21 @@ unguarded, so that any failure exits non-zero:
      poses, P2P_EPOCHS epochs of the bf16 U-Net (`cli.pix2pix`, seconds per
      epoch, a falling loss), and `cli.evaluate_pix2pix` on the val views
      (ground truth, NN renders, U-Net renders; the comparison GIF);
+ 10b. the tools: `measure_render_256_torch` (cli.measure_render) at
+     TOOL_RES^2 on phase 4's smpl_nerf configuration (seeded, with the culled
+     phase's sigma biases: every ray opaque before its last sample), one batch
+     of all 65,536 rays through its four candidates (full, fg-culled,
+     occupancy, occupancy on a prebaked grid; one warm call and five timed
+     each): the kernel path's launches of A and B recorded with their rows per
+     candidate (the full render: A at R = 65,536, B at 4,194,304 coarse and
+     12,582,912 fine rows), the plain path's none, the two full renders held
+     to the render bounds, each candidate's best-of-5 ms, the peak device
+     memory and one profiled full render; the kernel path of phase 6's append
+     configuration (mode 1: D at 8,388,608 rows of 705 floats);
+     `pose_landscape_torch` over LANDSCAPE_ANGLES on phase 9's image_wise run;
+     `rescore_renders_torch` on phase 8's --inf_fast 0 renders (forced,
+     --dry_run: PSNR of the 8-bit files within 0.1 dB of inference's, the file
+     untouched); `aliasing_floor_torch` on phase 10's smpl_nerf val split;
  11. distillation: `cli.distill.main` on that dataset's val split (2 views of
      64x64, one 4096-ray chunk each) with a seeded full-width `nerf` teacher
      (arm_angles.txt widths, --use_fused_mlp=2, so the teacher runs through
@@ -384,6 +402,15 @@ PREFIX_PATHS = ("append_v2", "append_vertex_v2")
 PAR_STEPS, PAR_REL, TORCHRUN_STEPS = 4, 1e-6, 2
 SA_R, SA_S, PP_ROWS, PP_MICRO, EP_E, EP_N = 2048, 192, 4096, 4, 64, 8192
 PAR_FN_REL = 1e-4
+# the tools phase: the whole-image view of measure_render (one batch of all
+# its rays; 64 coarse + 128 fine samples on arm_angles.txt, 64 + 64 on
+# config.txt), its cull budget, the pose landscape's angles
+TOOL_RES = 256
+TOOL_RAYS = TOOL_RES * TOOL_RES
+TOOL_K = int(TOOL_RAYS * 0.25)
+TOOL_REPS = dict(reps=5, warmup=1)   # timing of the kernels at the whole-image shapes
+PLAIN_CHUNK = 1 << 20                # rows per call of a plain version above this
+LANDSCAPE_ANGLES = ("0", "40", "5")
 
 
 def fail(msg: str) -> None:
@@ -451,12 +478,24 @@ def phase_build() -> dict:
 
 
 def phase_sample_pdf(device) -> dict:
+    """Kernel A at a 2048-ray batch (the entry's headline) and at the
+    whole-image batch of the tools phase (R = TOOL_RAYS, by_rays)."""
+    by_rays = {str(R): sample_pdf_at(device, R) for R in (PDF_R, TOOL_RAYS)}
+    return {"name": "sample_pdf", "route": "cuda",
+            "source": "smpl_nerf_tpu_torch/csrc/sample_pdf.cu",
+            "replaces": "smpl_nerf_tpu/ops/sample_pdf_pallas.py:83", "parity_ok": True,
+            **by_rays[str(PDF_R)], "bound_by": "bytes", "library_ms": None, "by_rays": by_rays}
+
+
+def sample_pdf_at(device, R: int) -> dict:
+    """Kernel A on R seeded rays (K = PDF_K bins, 30 % of them empty, PDF_F
+    fine samples) against its plain version, timed."""
     from smpl_nerf_tpu_torch.core import sampling
     from smpl_nerf_tpu_torch.ops import sample_pdf_cuda
 
     g = torch.Generator(device=device).manual_seed(0)
-    bins = torch.sort(1.0 + 3.0 * torch.rand(PDF_R, PDF_K, generator=g, device=device), -1)[0]
-    weights = torch.rand(PDF_R, PDF_K - 1, generator=g, device=device)
+    bins = torch.sort(1.0 + 3.0 * torch.rand(R, PDF_K, generator=g, device=device), -1)[0]
+    weights = torch.rand(R, PDF_K - 1, generator=g, device=device)
     weights = torch.where(torch.rand(weights.shape, generator=g, device=device) < 0.3,
                           torch.zeros_like(weights), weights)     # empty space
     got = sample_pdf_cuda.sample_pdf_cuda(bins, weights, PDF_F)
@@ -466,7 +505,7 @@ def phase_sample_pdf(device) -> dict:
     max_err = float(err.max())
     off_share = float((err > 1e-4).float().mean())
     widest = float((bins[:, 1:] - bins[:, :-1]).max())
-    print(f"kernel A sample_pdf R={PDF_R} K={PDF_K} F={PDF_F}: max|err|={max_err:.3e} "
+    print(f"kernel A sample_pdf R={R} K={PDF_K} F={PDF_F}: max|err|={max_err:.3e} "
           f"(bound: widest bin {widest:.3e}), share off by >1e-4: {off_share:.3e} "
           f"(bound {PDF_OFF_SHARE})")
     check(bool(torch.isfinite(got).all()), "sample_pdf kernel gave non-finite samples")
@@ -476,18 +515,14 @@ def phase_sample_pdf(device) -> dict:
     plain_ms = time_ms(lambda: sampling.sample_pdf(bins, weights, PDF_F))
     device_ms = kernel_device_ms("sample_pdf", lambda: sample_pdf_cuda.sample_pdf_cuda(
         bins, weights, PDF_F))
-    bytes_moved = 4 * PDF_R * (PDF_K + (PDF_K - 1) + PDF_F)
+    bytes_moved = 4 * R * (PDF_K + (PDF_K - 1) + PDF_F)
     bound_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
     print(f"  time: kernel {ms:.4f} ms per call (events), {device_ms:.4f} ms on the device "
           f"(profiler), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bytes_moved} B at {PEAK_BYTES_PER_S:.3g} B/s), {100 * bound_ms / device_ms:.1f} % "
           f"of the bound on the device")
-    return {"name": "sample_pdf", "route": "cuda",
-            "source": "smpl_nerf_tpu_torch/csrc/sample_pdf.cu",
-            "replaces": "smpl_nerf_tpu/ops/sample_pdf_pallas.py:83",
-            "max_abs_err": max_err, "off_share": off_share, "parity_ok": True,
-            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+    return {"max_abs_err": max_err, "off_share": off_share, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 def full_width_net(device, seed: int, additional_input_dim: int = 0):
@@ -514,6 +549,15 @@ def raw_rows(device, seed: int, rows: int = MLP_ROWS) -> torch.Tensor:
     return torch.cat([xyz, dirs / dirs.norm(dim=-1, keepdim=True)], -1).contiguous()
 
 
+def in_chunks(fn, x: torch.Tensor, chunk: int = PLAIN_CHUNK):
+    """A call of the row-wise plain version `fn` on all of x: in one piece up
+    to `chunk` rows, above that chunk by chunk (a plain forward's float32
+    temporaries at the whole-image shapes would not fit beside x)."""
+    if x.shape[0] <= chunk:
+        return lambda: fn(x)
+    return lambda: torch.cat([fn(x[lo:lo + chunk]) for lo in range(0, x.shape[0], chunk)])
+
+
 def forward_parity(name: str, got, want) -> tuple:
     """Print and check a fused forward against its plain version (B's bounds)."""
     err = (got - want).abs()
@@ -536,19 +580,22 @@ def phase_fused_mlp(device) -> dict:
     spec = fused_mlp.spec_from_model(net)
     flat = fused_mlp.flatten_params(spec, net)
     by_rows = {}
-    for rows in (MLP_ROWS, FINE_ROWS):
+    for rows in (MLP_ROWS, FINE_ROWS, TOOL_RAYS * 192):
+        reps = TOOL_REPS if rows > FINE_ROWS else {}
         x = raw_rows(device, seed=2, rows=rows)
+        plain = in_chunks(lambda rows: fused_mlp_v2.reference_forward_raw(spec, flat, rows), x)
         with torch.no_grad():
             got = fused_mlp_v2.fused_forward_cuda(spec, net, x)
-            want = fused_mlp_v2.reference_forward_raw(spec, flat, x)
+            want = plain()
         torch.cuda.synchronize()
         print(f"kernel B fused_mlp_v2_fwd N={rows} W={spec.width} layers={spec.n_layers} "
               f"skips={spec.skips} bf16, {fused_mlp_v2.shared_bytes(spec)} B shared memory per "
               f"block:")
         max_err, rel_err = forward_parity("fused v2", got, want)
+        del got, want
         with torch.no_grad():
-            ms = time_ms(lambda: fused_mlp_v2.fused_forward_cuda(spec, net, x))
-            plain_ms = time_ms(lambda: fused_mlp_v2.reference_forward_raw(spec, flat, x))
+            ms = time_ms(lambda: fused_mlp_v2.fused_forward_cuda(spec, net, x), **reps)
+            plain_ms = time_ms(plain, **reps)
         flops = 2 * mlp_macs(spec) * rows
         bytes_moved = rows * (6 + 4) * 4 + sum(p.numel() for p in flat) * 2
         ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * bytes_moved / PEAK_BYTES_PER_S
@@ -559,6 +606,8 @@ def phase_fused_mlp(device) -> dict:
         by_rows[str(rows)] = {"max_abs_err": max_err, "rel_err": rel_err, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
                               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        del x, plain
+    torch.cuda.empty_cache()
     return {"name": "fused_mlp_v2_fwd", "route": "cuda",
             "source": "smpl_nerf_tpu_torch/csrc/fused_mlp_v2_fwd.cu",
             "replaces": "smpl_nerf_tpu/ops/fused_mlp_v2.py:128", "parity_ok": True,
@@ -578,25 +627,29 @@ def phase_fused_mlp_v1(device) -> dict:
 
     by_rows = {}
     for add, rows, key in ((621, MLP_ROWS, str(MLP_ROWS)), (621, 2 * MLP_ROWS, str(2 * MLP_ROWS)),
-                           (64, MLP_ROWS, f"148:{MLP_ROWS}"), (0, MLP_ROWS, f"84:{MLP_ROWS}")):
+                           (64, MLP_ROWS, f"148:{MLP_ROWS}"), (0, MLP_ROWS, f"84:{MLP_ROWS}"),
+                           (621, TOOL_RAYS * 128, str(TOOL_RAYS * 128))):
+        reps = TOOL_REPS if rows > 2 * MLP_ROWS else {}
         net = full_width_net(device, seed=3, additional_input_dim=add)
         spec = fused_mlp.spec_from_model(net)
         flat = fused_mlp.flatten_params(spec, net)
         g = torch.Generator(device=device).manual_seed(4)
         # encoded columns lie in [-1, 1]; the identity part of the pose prefix too
         x = 2.0 * torch.rand(rows, spec.in_dim, generator=g, device=device) - 1.0
+        plain = in_chunks(lambda rows: fused_mlp.reference_forward(spec, flat, rows), x)
         with torch.no_grad():
             got = fused_mlp.fused_forward_cuda(spec, net, x)
-            want = fused_mlp.reference_forward(spec, flat, x)
+            want = plain()
         torch.cuda.synchronize()
         print(f"kernel D fused_mlp_fwd N={rows} in_dim={spec.in_dim} "
               f"(prefix {spec.additional_input_dim}) W={spec.width} layers={spec.n_layers} "
               f"skips={spec.skips} bf16, {fused_mlp.shared_bytes(spec)} B shared memory per "
               f"block:")
         max_err, rel_err = forward_parity("fused v1", got, want)
+        del got, want
         with torch.no_grad():
-            ms = time_ms(lambda: fused_mlp.fused_forward_cuda(spec, net, x))
-            plain_ms = time_ms(lambda: fused_mlp.reference_forward(spec, flat, x))
+            ms = time_ms(lambda: fused_mlp.fused_forward_cuda(spec, net, x), **reps)
+            plain_ms = time_ms(plain, **reps)
         flops = 2 * mlp_macs(spec) * rows
         bytes_moved = rows * (spec.in_dim + 4) * 4 + sum(p.numel() for p in flat) * 2
         ops_ms, bytes_ms = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * bytes_moved / PEAK_BYTES_PER_S
@@ -607,6 +660,8 @@ def phase_fused_mlp_v1(device) -> dict:
         by_rows[key] = {"max_abs_err": max_err, "rel_err": rel_err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
                         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        del x, plain
+    torch.cuda.empty_cache()
     return {"name": "fused_mlp_fwd", "route": "cuda",
             "source": "smpl_nerf_tpu_torch/csrc/fused_mlp_fwd.cu",
             "replaces": "smpl_nerf_tpu/ops/fused_mlp.py:139", "parity_ok": True,
@@ -2542,6 +2597,199 @@ def phase_estimator(tmp: str, dataset_dir: str) -> dict:
     return counts
 
 
+class LaunchRows:
+    """Records the rows of every launch of kernels A, B and D, by the label
+    of the candidate being rendered, by wrapping each module's launching
+    function for the duration of a `with` (the wrappers' counts still count
+    each launch once: the wrapped function counts it)."""
+
+    TARGETS = (("sample_pdf", "sample_pdf_cuda", "sample_pdf_cuda", lambda a: a[0].shape[0]),
+               ("fused_mlp_v2_fwd", "fused_mlp_v2", "fused_forward_cuda",
+                lambda a: a[2].shape[0]),
+               ("fused_mlp_fwd", "fused_mlp", "fused_forward_cuda", lambda a: a[2].shape[0]))
+
+    def __init__(self):
+        self.label, self.rows, self._saved = None, {}, []
+
+    def __enter__(self):
+        import importlib
+        from smpl_nerf_tpu_torch.cli import measure_render
+
+        for kernel, module, fn_name, rows_of in self.TARGETS:
+            mod = importlib.import_module(f"smpl_nerf_tpu_torch.ops.{module}")
+            original = getattr(mod, fn_name)
+
+            def recorded(*a, _orig=original, _kernel=kernel, _rows=rows_of, **kw):
+                out = _orig(*a, **kw)
+                key = (self.label, _kernel)
+                self.rows.setdefault(key, []).append(int(_rows(a)))
+                return out
+            self._saved.append((mod, fn_name, original))
+            setattr(mod, fn_name, recorded)
+        original_candidates = measure_render.candidates
+
+        def labelled(pipeline, batch):
+            self.label = "grid_bake"
+            out = original_candidates(pipeline, batch)
+            return {name: (lambda n=name, f=fn: (setattr(self, "label", n), f())[1])
+                    for name, fn in out.items()}
+        self._saved.append((measure_render, "candidates", original_candidates))
+        measure_render.candidates = labelled
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, original in reversed(self._saved):
+            setattr(mod, name, original)
+        return False
+
+    def histogram(self, label: str, kernel: str) -> dict:
+        """{rows: launches} of one candidate and kernel."""
+        rows = self.rows.get((label, kernel), [])
+        return {r: rows.count(r) for r in sorted(set(rows), reverse=True)}
+
+
+def tool_measure(run_dir: str, what: str) -> tuple:
+    """measure_render (measure_render_256_torch.py's main) on run_dir at
+    TOOL_RES^2: (result, launch counts, LaunchRows, peak device bytes)."""
+    from smpl_nerf_tpu_torch.cli import measure_render
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with LaunchRows() as rows:
+        result = measure_render.main([run_dir, str(TOOL_RES), "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"tools: measure_render {what} {TOOL_RES}x{TOOL_RES}: launches {counts}, peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB, {seconds:.1f} s host clock in all; best of 5 ms "
+          + " ".join(f"{k} {v:.2f}" for k, v in result["ms"].items()))
+    for label in ("grid_bake",) + tuple(result["ms"]):
+        per = {k: rows.histogram(label, k) for k in ("sample_pdf", "fused_mlp_v2_fwd",
+                                                     "fused_mlp_fwd")}
+        print(f"tools: {what} [{label}] launches by rows: "
+              + "; ".join(f"{k} {v}" for k, v in per.items() if v))
+    for name, rgb in result["rgb"].items():
+        check(rgb.shape == (TOOL_RES, TOOL_RES, 3) and bool(np.isfinite(rgb).all()),
+              f"tools: {what} [{name}] render is not a finite {TOOL_RES}^2 image")
+    return result, counts, rows, peak
+
+
+def whole_image_render(run_dir: str):
+    """measure_render's full candidate on run_dir's TOOL_RES^2 view, built as
+    the tool builds it, for the profiler."""
+    from smpl_nerf_tpu_torch.cli import inference, measure_render
+    from smpl_nerf_tpu_torch.render import batched
+    from smpl_nerf_tpu_torch.training.factory import dataset_extras
+
+    args = inference.setup_from_run_dir(run_dir)
+    data = measure_render.view_data(args.model_type, TOOL_RES)
+    pipeline = batched.build_from_run(run_dir, args, torch.device(DEVICE),
+                                      dataset_extras(args, data))
+    batch = measure_render.whole_image_batch(data, args.model_type, DEVICE)
+    return measure_render.candidates(pipeline, batch)["naive_all_rays"]
+
+
+def phase_tools(tmp: str, dataset_dir: str, gen_dirs: dict) -> tuple:
+    """The four tools, on what earlier phases made where they can:
+    measure_render at TOOL_RES^2 on seeded full-width arm_angles.txt runs
+    (kernel path: A at R = TOOL_RAYS and B at TOOL_RAYS x 192 fine rows in
+    every full render; plain path: no launch; the full renders of the two
+    paths held to the render bounds), then on a config.txt append run (mode
+    1: D on TOOL_RAYS x 128 rows of 705 floats, the peak device memory);
+    pose_landscape over LANDSCAPE_ANGLES on phase 9's image_wise run;
+    rescore_renders on phase 8's --inf_fast 0 renders (forced, not written
+    back); aliasing_floor on phase 10's smpl_nerf val split; one profiled
+    kernel-path full render. Returns (launch counts by path, device ms per
+    launch by path). The measured runs' sigma biases are raised as the culled phase's are
+    (CULL_FINE_SIGMA_BIAS, CULL_COARSE_SIGMA_BIAS): phase 4's runs, at the
+    65,536 rays of one 256^2 view, had a ray that still let light through
+    at its last sample (an interval 1e10 long), whose pixel the two paths'
+    roundings of a density near 0 set 0.53 apart (mean 8.9e-4)."""
+    from smpl_nerf_tpu_torch.cli import aliasing_floor, pose_landscape, rescore_renders
+
+    biases = dict(fine_sigma_bias=CULL_FINE_SIGMA_BIAS, coarse_sigma_bias=CULL_COARSE_SIGMA_BIAS)
+    smpl_runs = write_runs(tmp, ARM_ANGLES, "tools", (2, 1), **biases)
+    append_runs = write_runs(tmp, APPEND_CONFIG, "tools_append", (1, 1), ("--run_fine=1",),
+                             **biases)
+    paths = {}
+    kernel, paths["tools_measure"], rows, _ = tool_measure(smpl_runs[0], "smpl_nerf kernel path")
+    n = 6                                       # calls of each candidate: warm + best of 5
+    for label in ("naive_all_rays", "fg_culled", "occupancy", "occupancy_prebaked"):
+        pdf = rows.histogram(label, "sample_pdf")
+        mlp = rows.histogram(label, "fused_mlp_v2_fwd")
+        if label == "naive_all_rays":
+            want_pdf, want_mlp = {TOOL_RAYS: n}, {TOOL_RAYS * 192: n, TOOL_RAYS * 64: n}
+        else:
+            want_pdf = {TOOL_K: n}
+            want_mlp = {TOOL_K * 192: n, (TOOL_RAYS if label == "fg_culled" else TOOL_K) * 64: n}
+            if label == "occupancy":
+                want_mlp[64 ** 3] = n          # the grid baked in every call
+        check(pdf == want_pdf and mlp == want_mlp,
+              f"tools: [{label}] launched A {pdf} and B {mlp} (rows: launches), "
+              f"expected {want_pdf} and {want_mlp}")
+    check(rows.histogram("grid_bake", "fused_mlp_v2_fwd") == {64 ** 3: 1},
+          "tools: the prebaked grid was not baked once through kernel B")
+    device_ms = {"tools_measure": profiled(f"kernel-path {TOOL_RES}^2 whole-image render",
+                                           whole_image_render(smpl_runs[0]))}
+    plain, plain_counts, _, _ = tool_measure(smpl_runs[1], "smpl_nerf plain path")
+    check(all(v == 0 for v in plain_counts.values()),
+          f"tools: the plain path launched {plain_counts}")
+    for name in kernel["rgb"]:
+        diff = np.abs(kernel["rgb"][name] - plain["rgb"][name])
+        print(f"tools: {TOOL_RES}^2 [{name}] kernel vs plain path: max|diff| {diff.max():.4e}, "
+              f"mean {diff.mean():.4e}"
+              + (f" (bounds {PIXEL_MAX}, {PIXEL_MEAN})" if name == "naive_all_rays" else
+                 " (culled on random weights: each path picks its own rays; not bounded)"))
+    diff = np.abs(kernel["rgb"]["naive_all_rays"] - plain["rgb"]["naive_all_rays"])
+    check(float(diff.max()) <= PIXEL_MAX and float(diff.mean()) <= PIXEL_MEAN,
+          "tools: the whole-image kernel render disagrees with the plain path's")
+    print("tools: ms per whole-image view, kernel / plain path: "
+          + ", ".join(f"{k} {kernel['ms'][k]:.2f} / {plain['ms'][k]:.2f}" for k in kernel["ms"]))
+
+    # the append family: D's rows are expanded per sample (705 floats each),
+    # so one fine pass holds 23.6 GB (peak 44.52 GiB in all on the H100)
+    _, paths["tools_measure_append"], arows, _ = tool_measure(
+        append_runs[0], "append_smpl_params (mode 1) kernel path")
+    fine = arows.histogram("naive_all_rays", "fused_mlp_fwd")
+    check(fine.get(TOOL_RAYS * 128) == n, f"tools: the append run's full render launched D {fine}")
+
+    iw_run = os.path.join(tmp, "image_wise")
+    zero_launch_counts()
+    land = pose_landscape.main(["--run_dir", iw_run, "--dataset_dir",
+                                os.path.join(dataset_dir, "train"), "--angles",
+                                *LANDSCAPE_ANGLES, "--rays", "8192", "--device", DEVICE])
+    paths["tools_landscape"] = launch_counts()
+    losses = [r["loss"] for r in land["landscape"]]
+    check(len(losses) == int(LANDSCAPE_ANGLES[2]) and bool(np.isfinite(losses).all()),
+          f"tools: pose_landscape gave {losses}")
+    check_counts("tools_landscape", paths["tools_landscape"], {})
+
+    renders_dir = os.path.join(tmp, "inference_fast0")
+    with open(os.path.join(renders_dir, "scores.json")) as fh:
+        stored = json.load(fh)
+    zero_launch_counts()
+    fresh = rescore_renders.main(["--renders_dir", renders_dir, "--force", "--dry_run",
+                                  "--device", DEVICE])[0]
+    paths["tools_rescore"] = launch_counts()
+    print(f"tools: rescore_renders of {renders_dir}: psnr {fresh['psnr']:.4f} from the 8-bit "
+          f"files against {stored['psnr']:.4f} from the float renders")
+    check(abs(fresh["psnr"] - stored["psnr"]) <= 0.1 and "rlpips" in fresh,
+          "tools: the re-scored PSNR drifts more than 0.1 dB from inference's")
+    with open(os.path.join(renders_dir, "scores.json")) as fh:
+        check(json.load(fh) == stored, "tools: --dry_run rewrote scores.json")
+
+    zero_launch_counts()
+    floor = aliasing_floor.main(["--dataset_dir", os.path.join(gen_dirs["smpl_nerf"], "val"),
+                                 "--frames", str(GEN_VAL), "--device", DEVICE])
+    paths["tools_aliasing"] = launch_counts()
+    check(all(15.0 < v < 80.0 for v in floor["psnr"]),
+          f"tools: aliasing floors {floor['psnr']} are no PSNR of a rendered view")
+    return paths, device_ms
+
+
 def phase_distill(tmp: str, dataset_dir: str) -> tuple:
     """The distilled-expert serving path through `cli.distill.main`; returns
     (launch counts of the serving run, device ms per launch of a profiled view,
@@ -3147,6 +3395,9 @@ def main() -> None:
                   f"{name} was launched on no vertex_sphere path")
         paths["estimator"] = phase_estimator(tmp, gen_dirs["smpl_nerf"])
         paths.update(phase_baselines(tmp, gen_dirs))
+        tool_paths, tool_ms = phase_tools(tmp, dataset_dir, gen_dirs)
+        paths.update(tool_paths)
+        device_ms.update(tool_ms)
         paths["distill"], device_ms["distill"], on_path = phase_distill(tmp, dataset_dir)
         paths["roofline"] = phase_roofline()
     # kernel E's headline is the plan the distill path launched, in its serving type

@@ -25,8 +25,10 @@ import torch.nn.functional as F
 
 
 def _tensor(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                           dtype=torch.float32, device=device)
+    """float32 tensor of an array. Arrays are copied: a numpy view with a
+    negative stride (a channel flip `[..., ::-1]`) is no tensor's storage."""
+    return torch.as_tensor(np.array(x, dtype=np.float32) if not isinstance(x, torch.Tensor)
+                           else x, dtype=torch.float32, device=device)
 
 
 def img2mse(x, y) -> torch.Tensor:
