@@ -411,6 +411,7 @@ TOOL_K = int(TOOL_RAYS * 0.25)
 TOOL_REPS = dict(reps=5, warmup=1)   # timing of the kernels at the whole-image shapes
 PLAIN_CHUNK = 1 << 20                # rows per call of a plain version above this
 LANDSCAPE_ANGLES = ("0", "40", "5")
+SPAN_CAPACITY = 1 << 16              # spans a timed training run records (`timed_run`)
 
 
 def fail(msg: str) -> None:
@@ -1618,9 +1619,9 @@ def phase_training(tmp: str, dataset_dir: str) -> tuple:
 
     ms = {"plain": [], "kernel": []}
     for path in ("plain", "kernel", "kernel", "plain"):
-        sol, _ = train_run(tmp, dataset_dir, f"train_{path}_timed",
-                           *((2, 1) if path == "kernel" else (0, 0)))
-        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+        _, _, step = timed_run(train_run, tmp, dataset_dir, f"train_{path}_timed",
+                               *((2, 1) if path == "kernel" else (0, 0)))
+        ms[path].append(step)
     print(f"training: ms per step of {BATCH} rays (host clock, synchronised, median without "
           f"the first step; plain/kernel/kernel/plain): kernel path "
           f"{statistics.mean(ms['kernel']):.1f}, plain path {statistics.mean(ms['plain']):.1f}")
@@ -1658,6 +1659,28 @@ def max_rel(got: dict, want: dict) -> float:
             worst = max(worst, float((g - w.float()).abs().max())
                         / max(float(w.float().abs().max()), 1e-30))
     return worst
+
+
+def timed_run(run, *args) -> tuple:
+    """(solver, run dir, ms a step) of `run(*args)`, one of the *_run
+    functions, under the span recorder (`tracing`): a step runs from the start
+    of its `solver.gather` to the end of its `solver.loss_read` (host clock,
+    synchronised by the loss read); the median without the first step."""
+    from smpl_nerf_tpu_torch import tracing
+
+    tracing.enable(SPAN_CAPACITY)
+    try:
+        solver, run_dir = run(*args)
+    finally:
+        tracing.disable()
+    start, end = {}, {}
+    for span in tracing.snapshot().spans:
+        if span.name == "solver.gather":
+            start[span.request] = span.start_ns
+        elif span.name == "solver.loss_read":
+            end[span.request] = span.end_ns
+    steps = sorted(end)[1:]
+    return solver, run_dir, 1e-6 * statistics.median(end[k] - start[k] for k in steps)
 
 
 def step_ms(solver, arrays) -> float:
@@ -1890,9 +1913,9 @@ def phase_prefix_training(tmp: str, dataset_dir: str) -> tuple:
 
     ms = {"plain": [], "kernel": []}
     for path in ("plain", "kernel", "kernel", "plain"):
-        sol, _ = prefix_train_run(tmp, dataset_dir, f"append_v2_{path}_timed",
-                                  *((2, 1) if path == "kernel" else (0, 0)))
-        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+        _, _, step = timed_run(prefix_train_run, tmp, dataset_dir, f"append_v2_{path}_timed",
+                               *((2, 1) if path == "kernel" else (0, 0)))
+        ms[path].append(step)
     print(f"append_v2: ms per step of {BATCH} rays (host clock, synchronised, median without "
           f"the first step; plain/kernel/kernel/plain): kernel path "
           f"{statistics.mean(ms['kernel']):.1f} {ms['kernel']}, plain path "
@@ -2166,9 +2189,10 @@ def phase_smpl_family(tmp: str, dataset_dir: str, what: str, model_type: str,
     out = os.path.join(tmp, f"{what}_views.npy")
     render(kernel_dir, out)                              # warm-up of the 128x128 renders
     for path in ("plain", "kernel", "kernel", "plain"):
-        sol, _ = smpl_family_run(tmp, dataset_dir, f"{what}_{path}_timed", model_type,
-                                 *(kernel_flags if path == "kernel" else (0, 0)), extra)
-        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+        _, _, step = timed_run(smpl_family_run, tmp, dataset_dir, f"{what}_{path}_timed",
+                               model_type, *(kernel_flags if path == "kernel" else (0, 0)),
+                               extra)
+        ms[path].append(step)
         _, sec = render(kernel_dir if path == "kernel" else plain_dir, out)
         view_ms[path].append(1e3 * sec / VIEWS)
     print(f"{what}: ms per step of {BATCH} rays (host clock, synchronised, median without the "
@@ -2370,7 +2394,8 @@ def phase_smpl_warp(tmp: str, dataset_dir: str) -> dict:
     paths = {}
     for model_type in ("smpl", "warp"):
         zero_launch_counts()
-        solver, run_dir = sample_run(tmp, dataset_dir, f"{model_type}_card", model_type, -1)
+        solver, run_dir, ms = timed_run(sample_run, tmp, dataset_dir, f"{model_type}_card",
+                                        model_type, -1)
         counts = launch_counts()
         check_counts(f"{model_type} training", counts, {})
         paths[f"{model_type}_train"] = counts
@@ -2378,7 +2403,6 @@ def phase_smpl_warp(tmp: str, dataset_dir: str) -> dict:
                             device="cpu")
         card_loss, cpu_loss = solver.history["step_loss"], cpu.history["step_loss"]
         rel = abs(card_loss[0] - cpu_loss[0]) / cpu_loss[0]
-        ms = 1e3 * statistics.median(solver.step_seconds[1:])
         print(f"{model_type}: cli.train configs/config.txt full width, {SMPL_STEPS} steps of "
               f"{BATCH} rays on the card: losses " + " ".join(f"{v:.6f}" for v in card_loss)
               + f"; first step {card_loss[0]:.6f} against the CPU's {cpu_loss[0]:.6f}: relative "
@@ -2523,9 +2547,9 @@ def phase_vertex_sphere(tmp: str, dataset_dir: str, view_dir: str, what: str,
     view_ms = {"plain": [], "kernel": []}
     vs_views(view_args, kernel_dir, view_data, -1)                  # warm-up
     for path in ("plain", "kernel", "kernel", "plain"):
-        sol, _ = sample_run(tmp, dataset_dir, f"{what}_{path}_timed", "vertex_sphere",
-                            -1 if path == "kernel" else 0, extra)
-        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+        _, _, step = timed_run(sample_run, tmp, dataset_dir, f"{what}_{path}_timed",
+                               "vertex_sphere", -1 if path == "kernel" else 0, extra)
+        ms[path].append(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         vs_views(view_args, kernel_dir if path == "kernel" else plain_dir, view_data,
@@ -3053,9 +3077,9 @@ def phase_net_variant(tmp: str, dataset_dir: str, what: str, config_file: str,
 
     ms = {"plain": [], "kernel": []}
     for path in ("plain", "kernel", "kernel", "plain"):
-        sol, _ = net_run(tmp, dataset_dir, f"{what}_{path}_timed", config_file,
-                         int(path == "kernel"), extra)
-        ms[path].append(1e3 * statistics.median(sol.step_seconds[1:]))
+        _, _, step = timed_run(net_run, tmp, dataset_dir, f"{what}_{path}_timed", config_file,
+                               int(path == "kernel"), extra)
+        ms[path].append(step)
     print(f"{what}: ms per step of {BATCH} rays (host clock, synchronised, median without "
           f"the first step; plain/kernel/kernel/plain): kernel path "
           f"{statistics.mean(ms['kernel']):.1f} {ms['kernel']}, plain path "

@@ -1,0 +1,9 @@
+"""Device idle time of the device-only stretch whose innermost program span
+lies under `solver.backward` (autograd, and the all-reduce under a process
+group) or `solver.optimizer` (Adam, the EMA), as a share of the stretch;
+port_bench/spans.py."""
+from port_bench import spans
+
+
+def read(rec):
+    return spans.idle_under_pct(rec, "train", ("solver.backward", "solver.optimizer"))

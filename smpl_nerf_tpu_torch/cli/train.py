@@ -37,8 +37,9 @@ in JAX); a writer train() made is closed when it returns. `--check_nans 1`
 raises on a non-finite epoch loss with the non-finite parameters
 (`solver.nan_report`). `--profile_dir D` runs the solver's training under
 torch.profiler (CPU, and CUDA activity on the card) and writes
-D/train_trace.json, a Chrome trace; the JAX package writes a jax.profiler
-trace there instead.
+D/train_trace.json, a Chrome trace that names the program's spans
+(`tracing`: solver.step, pass.net, ...); the JAX package writes a
+jax.profiler trace there instead.
 
 With `--render_gif` (on by default), a nerf, smpl_nerf or append run then
 re-renders its train + val images in creation order into
@@ -60,6 +61,7 @@ import torch
 import torch.distributed as dist
 
 from smpl_nerf_tpu_torch import config as config_mod
+from smpl_nerf_tpu_torch import tracing
 from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.cli.inference import inference_gif
 from smpl_nerf_tpu_torch.data import datasets
@@ -101,15 +103,20 @@ def summary_writer(log_dir: str):
 
 def train_profiled(solver: Solver, train_data, val_data, profile_dir: str,
                    device: torch.device) -> str:
-    """solver.train under torch.profiler; returns the Chrome trace's path
-    (rank r > 0 of a process group writes train_trace_rank<r>.json beside it)."""
+    """solver.train under torch.profiler, with the program's spans (`tracing`)
+    in the trace; returns the Chrome trace's path (rank r > 0 of a process
+    group writes train_trace_rank<r>.json beside it)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        solver.train(train_data, val_data)
+    tracing.enable(0)       # the spans' names go to the trace; none is kept in memory
+    try:
+        with profile(activities=activities) as prof:
+            solver.train(train_data, val_data)
+    finally:
+        tracing.disable()
     os.makedirs(profile_dir, exist_ok=True)
     name = TRACE_FILE
     if solver.mesh.rank:

@@ -12,7 +12,8 @@ sin at arguments up to 2^9 * |x|, where `__sinf` is badly wrong.
 Libraries go to `build/torch_kernels/` at the repo root, named by a hash of
 the source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and never mixed with a
 stale library. The build happens at first use; `build_all()` starts one nvcc
-per source, all at once, for callers that want the build up front.
+per source, all at once, for callers that want the build up front. Each
+build or first load is an `ops.load` span (`tracing`).
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 import torch
+
+from smpl_nerf_tpu_torch import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -86,14 +89,15 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
     Already-built libraries are skipped (their output is the saved log).
     """
-    procs = {name: _start(name) for name in names}
-    logs = {}
-    for name, proc in procs.items():
-        if proc is None:
-            log_file = BUILD_DIR / f"{name}.log"
-            logs[name] = log_file.read_text() if log_file.exists() else ""
-        else:
-            logs[name] = _finish(name, proc)
+    with tracing.span("ops.load"):
+        procs = {name: _start(name) for name in names}
+        logs = {}
+        for name, proc in procs.items():
+            if proc is None:
+                log_file = BUILD_DIR / f"{name}.log"
+                logs[name] = log_file.read_text() if log_file.exists() else ""
+            else:
+                logs[name] = _finish(name, proc)
     return logs
 
 
@@ -101,10 +105,11 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        proc = _start(name)
-        if proc is not None:
-            _finish(name, proc)
-        lib = ctypes.CDLL(str(library_path(name)))
+        with tracing.span("ops.load"):
+            proc = _start(name)
+            if proc is not None:
+                _finish(name, proc)
+            lib = ctypes.CDLL(str(library_path(name)))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

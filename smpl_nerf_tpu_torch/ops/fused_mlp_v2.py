@@ -39,7 +39,7 @@ per 256-row slice, as the JAX kernel's tiles round) and db, and a last pass
 sums the splits in a fixed order. No atomics: the gradients are the same
 bits on every run. `reference_backward_raw` is its plain version:
 `torch.autograd.grad` through `reference_forward_raw`. `launches` counts
-launches of B, `launches_bwd` of C.
+launches of B, `launches_bwd` of C; `rows` the rows B's launches took.
 """
 from __future__ import annotations
 
@@ -58,6 +58,7 @@ from smpl_nerf_tpu_torch.ops.fused_mlp import (D_CHUNK, D_TILE_ROWS, MlpSpec, fl
 
 launches = 0          # kernel B (forward)
 launches_bwd = 0      # kernel C (backward)
+rows = 0              # rows kernel B took
 
 
 def encoding_matrices(d: int, n_freqs: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -222,7 +223,7 @@ def _net_args(spec: MlpSpec):
 
 def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor) -> torch.Tensor:
     """Launch kernel B on raw rows [N, add + 6] (float32, CUDA) -> [N, 4] float32."""
-    global launches
+    global launches, rows
     _check_rows(spec, x_raw)
     w, b, heads = packed(spec, net, x_raw.device, pack_weights_d)
     N = x_raw.shape[0]
@@ -236,6 +237,7 @@ def fused_forward_cuda(spec: MlpSpec, net: torch.nn.Module, x_raw: torch.Tensor)
                                       stream)
     _build.check(lib, err, "fused_mlp_v2_fwd")
     launches += 1
+    rows += N
     return out
 
 

@@ -49,6 +49,10 @@ gets [prefix || xyz || unit dir] and encodes them itself. For a RenderRayNet:
     else mode 0; always mode 0 on the CPU.
 A SIREN or grid net always runs its own forward: auto leaves it there, and an
 explicit --use_fused_mlp=1|2 raises (JAX silently runs such a net plain).
+Spans (`tracing`): `pass.coarse` and `pass.fine` hold a pass; inside them
+`pass.sample` (coarse sampling, or the fine inverse-CDF sampling: kernel A),
+`pass.warp` (the warp field or vertex attention), `pass.net` (the runner: B,
+D or PyTorch's layers) and `pass.integrate` (`raw2outputs`).
 smpl_estimator trains a CNN with no render pipeline (training/estimator.py).
 """
 from __future__ import annotations
@@ -58,6 +62,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from smpl_nerf_tpu_torch import tracing
 from smpl_nerf_tpu_torch.config import MODEL_TYPES
 from smpl_nerf_tpu_torch.core.encoding import PositionalEncoder
 from smpl_nerf_tpu_torch.core.integrate import raw2outputs
@@ -383,25 +388,33 @@ class FamilyPasses:
         cfg = self.cfg
         if cfg.model_type in COARSE_ONLY_FAMILIES:
             goal_verts, warp_vecs = pose
-            warp = vertex_attention_warp(samples, goal_verts, warp_vecs, cfg.warp_radius,
-                                         cfg.warp_temperature)
-            warped = samples + warp
-            sample_dirs = warped - origins[:, None, :]
-            raw = self.run(key, warped, _normalize(sample_dirs))
-            out = raw2outputs(raw, z_vals, sample_dirs, noise, cfg.white_background, gen)
+            with tracing.span("pass.warp"):
+                warp = vertex_attention_warp(samples, goal_verts, warp_vecs, cfg.warp_radius,
+                                             cfg.warp_temperature)
+                warped = samples + warp
+                sample_dirs = warped - origins[:, None, :]
+            with tracing.span("pass.net"):
+                raw = self.run(key, warped, _normalize(sample_dirs))
+            with tracing.span("pass.integrate"):
+                out = raw2outputs(raw, z_vals, sample_dirs, noise, cfg.white_background, gen)
             return out, {"warp": warp, "ray_samples": samples, "warped_samples": warped}
         if cfg.model_type == "smpl_nerf":
-            warp = self.warp(samples, pose)
-            warped = samples + warp
-            sample_dirs = warped - origins[:, None, :]
-            raw = self.run(key, warped, _normalize(sample_dirs))
+            with tracing.span("pass.warp"):
+                warp = self.warp(samples, pose)
+                warped = samples + warp
+                sample_dirs = warped - origins[:, None, :]
+            with tracing.span("pass.net"):
+                raw = self.run(key, warped, _normalize(sample_dirs))
             if fine:
                 sample_dirs = dirs[:, None, :].expand(samples.shape)
-            out = raw2outputs(raw, z_vals, sample_dirs, noise, cfg.white_background, gen)
+            with tracing.span("pass.integrate"):
+                out = raw2outputs(raw, z_vals, sample_dirs, noise, cfg.white_background, gen)
             return out, {"warp": warp, "ray_samples": samples, "warped_samples": warped}
-        raw = self.run(key, samples, _normalize(dirs)[:, None, :], prefix=self.prefix(pose))
-        out = raw2outputs(raw, z_vals, dirs[:, None, :].expand(samples.shape), noise,
-                          cfg.white_background, gen)
+        with tracing.span("pass.net"):
+            raw = self.run(key, samples, _normalize(dirs)[:, None, :], prefix=self.prefix(pose))
+        with tracing.span("pass.integrate"):
+            out = raw2outputs(raw, z_vals, dirs[:, None, :].expand(samples.shape), noise,
+                              cfg.white_background, gen)
         extras = {"ray_samples": samples}
         if cfg.model_type in ("nerf", "original_nerf"):
             extras["depth"] = out.depth
@@ -411,10 +424,12 @@ class FamilyPasses:
                gen: Optional[torch.Generator] = None):
         """(outputs, z_vals, per-sample tensors) of the coarse pass."""
         cfg = self.cfg
-        samples, z_vals = coarse_sampling(origins, dirs, cfg.near, cfg.far,
-                                          cfg.number_coarse_samples, gen)
-        out, extras = self._net_pass("model_coarse", origins, dirs, pose, samples, z_vals,
-                                     noise, gen, fine=False)
+        with tracing.span("pass.coarse"):
+            with tracing.span("pass.sample"):
+                samples, z_vals = coarse_sampling(origins, dirs, cfg.near, cfg.far,
+                                                  cfg.number_coarse_samples, gen)
+            out, extras = self._net_pass("model_coarse", origins, dirs, pose, samples, z_vals,
+                                         noise, gen, fine=False)
         return out, z_vals, extras
 
     def fine(self, origins, dirs, pose, z_vals, weights, noise: float = 0.0,
@@ -422,10 +437,12 @@ class FamilyPasses:
         """(outputs, per-sample tensors) of the fine pass, sampled from the
         coarse pass's z_vals and weights."""
         cfg = self.cfg
-        z_fine, samples = fine_sampling(origins, dirs, z_vals, weights,
-                                        cfg.number_fine_samples, cfg.use_pallas)
-        return self._net_pass("model_fine", origins, dirs, pose, samples, z_fine, noise, gen,
-                              fine=True)
+        with tracing.span("pass.fine"):
+            with tracing.span("pass.sample"):
+                z_fine, samples = fine_sampling(origins, dirs, z_vals, weights,
+                                                cfg.number_fine_samples, cfg.use_pallas)
+            return self._net_pass("model_fine", origins, dirs, pose, samples, z_fine, noise,
+                                  gen, fine=True)
 
     # ------------------------------------ the families on the loader's samples
     def smpl(self, batch, noise: float = 0.0, gen=None) -> dict:

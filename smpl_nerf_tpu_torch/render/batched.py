@@ -16,14 +16,20 @@ through `render_fn_per_image`, which aligns the batches to image boundaries
 and is called once per image, so that the occupancy renderer bakes one grid
 per body pose and only one is alive at a time. `cli/inference.render_dataset`
 renders a run directory through it.
+
+Spans (`tracing`): `render.view` holds a call, numbered by the call as its
+request; inside it `render.upload` (the arrays to the device), one
+`render.batch` per batch, and `render.readback` (the result to the host).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from smpl_nerf_tpu_torch import tracing
 from smpl_nerf_tpu_torch.data.datasets import RayData
 from smpl_nerf_tpu_torch.parallel import mesh as mesh_mod
 from smpl_nerf_tpu_torch.parallel import multihost
@@ -32,6 +38,8 @@ from smpl_nerf_tpu_torch.training import checkpoints
 from smpl_nerf_tpu_torch.training.factory import build_models_and_params
 from smpl_nerf_tpu_torch.training.solver import (check_batch_images, gather_batch,
                                                  swap_pose_table)
+
+_calls = itertools.count()      # render_rays_batched's calls, the spans' request
 
 
 def image_spans(num_rays: int, num_images: int, per_image: bool) -> List[tuple]:
@@ -71,33 +79,37 @@ def render_rays_batched(pipeline: Pipeline, data: RayData, batch_size: int,
     render_fn_per_image: image index -> such a render_fn; batches then never
     mix two images' rays. mesh: split each batch's rows over its data axis.
     """
-    mesh = mesh or mesh_mod.Mesh()
-    batch_size = mesh_mod.pad_to_multiple(batch_size, mesh.data)
-    lo_r, hi_r = (multihost.local_row_range(mesh, batch_size) if mesh.distributed
-                  else (0, batch_size))
-    cfg = getattr(pipeline, "cfg", None)        # any batch -> outputs callable renders
-    arrays = {k: torch.as_tensor(v, device=device)
-              for k, v in data.batch_arrays(cfg.model_type if cfg else "nerf").items()}
-    arrays["image_indices"] = arrays["image_indices"].long()
-    out = torch.empty((data.num_rays, 3), dtype=torch.float32, device=device)
-    fn, current = render_fn, None
-    with swap_pose_table(getattr(pipeline, "models", {}), data.human_poses):
-        for image, lo, hi in batch_bounds(data.num_rays, data.num_images, batch_size,
-                                          render_fn_per_image is not None):
-            if image is not None and image != current:
-                # the factory is called lazily per image: one baked grid at a time
-                fn, current = render_fn_per_image(image), image
-            if cfg is not None and cfg.images_per_batch:
-                check_batch_images(cfg, padded_rows(lo, hi, batch_size).numpy(),
-                                   data.image_indices, arrays)
-            rows = padded_rows(lo, hi, batch_size, device)
-            if fn is not None:
-                rgb = fn(gather_batch(arrays, rows))
-            else:
-                rgb = pipeline(gather_batch(arrays, rows[lo_r:hi_r]))["rgb_fine"]
-                rgb = multihost.all_gather_rows(rgb, mesh)
-            out[lo:hi] = rgb[:hi - lo]
-    return out.cpu().numpy()
+    with tracing.span("render.view", next(_calls)):
+        mesh = mesh or mesh_mod.Mesh()
+        batch_size = mesh_mod.pad_to_multiple(batch_size, mesh.data)
+        lo_r, hi_r = (multihost.local_row_range(mesh, batch_size) if mesh.distributed
+                      else (0, batch_size))
+        cfg = getattr(pipeline, "cfg", None)        # any batch -> outputs callable renders
+        with tracing.span("render.upload"):
+            arrays = {k: torch.as_tensor(v, device=device)
+                      for k, v in data.batch_arrays(cfg.model_type if cfg else "nerf").items()}
+            arrays["image_indices"] = arrays["image_indices"].long()
+            out = torch.empty((data.num_rays, 3), dtype=torch.float32, device=device)
+        fn, current = render_fn, None
+        with swap_pose_table(getattr(pipeline, "models", {}), data.human_poses):
+            for image, lo, hi in batch_bounds(data.num_rays, data.num_images, batch_size,
+                                              render_fn_per_image is not None):
+                with tracing.span("render.batch"):
+                    if image is not None and image != current:
+                        # the factory is called lazily per image: one baked grid at a time
+                        fn, current = render_fn_per_image(image), image
+                    if cfg is not None and cfg.images_per_batch:
+                        check_batch_images(cfg, padded_rows(lo, hi, batch_size).numpy(),
+                                           data.image_indices, arrays)
+                    rows = padded_rows(lo, hi, batch_size, device)
+                    if fn is not None:
+                        rgb = fn(gather_batch(arrays, rows))
+                    else:
+                        rgb = pipeline(gather_batch(arrays, rows[lo_r:hi_r]))["rgb_fine"]
+                        rgb = multihost.all_gather_rows(rgb, mesh)
+                    out[lo:hi] = rgb[:hi - lo]
+        with tracing.span("render.readback"):
+            return out.cpu().numpy()
 
 
 def build_from_run(run_dir: str, args, device: torch.device,

@@ -36,6 +36,13 @@ the warp magnitude for the warp families), the warp point cloud at the
 --mesh_epochs fractions, and the first image's first batch of density
 samples as vedo_data (training/logging.py).
 
+Spans (`tracing`, recorded only while the recorder is on): `solver.epoch`
+holds an epoch; each step's `solver.draw`, `solver.gather`, `solver.step`
+(`solver.forward`, `solver.backward` with the all-reduce, `solver.optimizer`
+with the EMA) and `solver.loss_read` carry the global step as their request;
+`solver.validate` and the run-dir saves' `solver.save` carry the epoch (an
+early validation the global step, as its `_validate` call does).
+
 Parallel training (parallel/): the solver runs on a ('data', 'model') mesh
 (--mesh_shape; one process per device, parallel/mesh.py). Without a process
 group it is the single-device code above. With one, every rank draws the
@@ -65,6 +72,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from smpl_nerf_tpu_torch import tracing
 from smpl_nerf_tpu_torch.core.gmm import GaussianMixture
 from smpl_nerf_tpu_torch.core.integrate import RowDraws
 from smpl_nerf_tpu_torch.parallel import mesh as mesh_mod
@@ -343,7 +351,6 @@ class Solver:
         self.epoch_offset = 0
         self.best_val = float("inf")
         self.val_curve = []  # per-epoch metrics, persisted as val_curve.json
-        self.step_seconds = []  # host-clock seconds of every train step (synchronised)
 
         # --param_ema: exponential moving average of the weights, used for
         # validation and checkpoints; the raw weights keep training
@@ -408,21 +415,24 @@ class Solver:
         process group: the loss is scaled by it, and the gradients and the
         returned losses are summed over the data group (the global means)."""
         self.optimizer.zero_grad()
-        loss, aux = self.loss_fn(batch, generator, True)
-        if share is None:
-            loss.backward()
-        else:
-            (loss * share).backward()
-            grads = [p.grad for m in self.models.values() for p in m.parameters()
-                     if p.grad is not None]
-            multihost.all_reduce_flat(grads, self.mesh.data_group)
-            terms = list(aux)
-            sums = torch.stack([aux[k].detach().float() * share for k in terms])
-            multihost.all_reduce_flat([sums], self.mesh.data_group)
-            aux = dict(zip(terms, sums.unbind(0)))
-        self.optimizer.step()
-        if self.ema_params is not None:
-            self._update_ema()
+        with tracing.span("solver.forward"):
+            loss, aux = self.loss_fn(batch, generator, True)
+        with tracing.span("solver.backward"):
+            if share is None:
+                loss.backward()
+            else:
+                (loss * share).backward()
+                grads = [p.grad for m in self.models.values() for p in m.parameters()
+                         if p.grad is not None]
+                multihost.all_reduce_flat(grads, self.mesh.data_group)
+                terms = list(aux)
+                sums = torch.stack([aux[k].detach().float() * share for k in terms])
+                multihost.all_reduce_flat([sums], self.mesh.data_group)
+                aux = dict(zip(terms, sums.unbind(0)))
+        with tracing.span("solver.optimizer"):
+            self.optimizer.step()
+            if self.ema_params is not None:
+                self._update_ema()
         return {k: v.detach() for k, v in aux.items()}
 
     @torch.no_grad()
@@ -577,74 +587,83 @@ class Solver:
             return np.concatenate([fg, bg])
 
         for epoch in range(int(args.num_epochs)):
-            perm = np_rng.permutation(n)
-            epoch_losses = []
-            t0 = time.time()
-            for step in range(steps_per_epoch):
-                if fg_ratio > 0.0 or ipb:
-                    idx = draw_batch_indices()
-                else:
-                    lo = (step * bs) % max(1, n - bs + 1) if n >= bs else 0
-                    idx = perm[lo:lo + bs]
-                    if len(idx) < bs:  # wrap around for tiny datasets
-                        idx = np.concatenate([idx, perm[:bs - len(idx)]])
-                t_step = time.perf_counter()
-                lo, hi = self.local_rows(bs)
-                share = {"share": (hi - lo) / bs} if self.mesh.distributed else {}
-                aux = self.train_step(self.gather(arrays, idx[lo:hi]), self.draws(bs), **share)
-                epoch_losses.append(float(aux["loss"]))   # synchronises the device
-                self.step_seconds.append(time.perf_counter() - t_step)
-                self.global_step += 1
-                if early_val and step % int(args.log_iterations) == 0:
-                    self.history.setdefault("val_loss_early", []).append(
-                        self._validate(val_arrays, val_data.num_rays, epoch=self.global_step))
-            self.history.setdefault("step_loss", []).extend(epoch_losses)
-            train_loss = float(np.mean(epoch_losses))
-            if int(getattr(args, "check_nans", 0)) and not np.isfinite(train_loss):
-                report = nan_report(self.models)
-                raise RuntimeError(
-                    f"non-finite train loss {train_loss} at epoch {epoch}"
-                    + (f"; non-finite params:\n{report}" if report else
-                       " (params still finite - NaN originated in the loss)"))
-            val_loss = self._validate(val_arrays, val_data.num_rays,
-                                      epoch=self.epoch_offset + epoch,
-                                      full=epoch == int(args.num_epochs) - 1)
-            dt = time.time() - t0
-            rays_per_sec = steps_per_epoch * bs / dt
-            self.history["train_loss"].append(train_loss)
-            self.history["val_loss"].append(val_loss)
-            self._log("loss/train", train_loss)
-            self._log("loss/val", val_loss)
-            self._log("perf/rays_per_sec", rays_per_sec)
-            print(f"[epoch {self.epoch_offset + epoch}] train {train_loss:.5f} "
-                  f"val {val_loss:.5f} psnr {mse2psnr(max(val_loss / 2, 1e-10)):.2f} "
-                  f"({rays_per_sec:,.0f} rays/s)")
-            if self.rerenders:
-                self._log_rerenders(val_arrays, val_data, epoch)
-            if callback is not None:
-                callback(self, epoch)
-            if self.log_dir:
-                # every rank: the saves gather tensor-parallel shards; rank 0 writes
-                self.save_run(self.log_dir)
-                # machine-readable per-epoch curve (absolute epoch numbering
-                # survives --load_run resumes)
-                self.val_curve.append({
-                    "epoch": self.epoch_offset + epoch,
-                    "train_loss": float(train_loss), "val_loss": float(val_loss),
-                    "psnr_estimate": float(mse2psnr(max(val_loss / 2, 1e-10))),
-                    "rays_per_sec": round(rays_per_sec, 1)})
-                if self.mesh.rank == 0:
-                    with open(os.path.join(self.log_dir, "val_curve.json"), "w") as fh:
-                        json.dump(self.val_curve, fh, indent=1)
-                # full-fidelity resume state: a run cut mid-way resumes
-                # without restarting Adam cold
-                self.save_train_state(self.log_dir, self.epoch_offset + epoch,
-                                      min(self.best_val, val_loss))
-                # keep the best-validation snapshot separately (validation is
-                # noisy under sigma noise, so the final epoch can regress)
-                if val_loss <= min(self.history["val_loss"] + [self.best_val]):
-                    self.best_val = val_loss
-                    self.save_run(os.path.join(self.log_dir, "best"))
+            with tracing.span("solver.epoch", request=self.epoch_offset + epoch):
+                perm = np_rng.permutation(n)
+                epoch_losses = []
+                t0 = time.time()
+                for step in range(steps_per_epoch):
+                    request = self.global_step
+                    with tracing.span("solver.draw", request):
+                        if fg_ratio > 0.0 or ipb:
+                            idx = draw_batch_indices()
+                        else:
+                            lo = (step * bs) % max(1, n - bs + 1) if n >= bs else 0
+                            idx = perm[lo:lo + bs]
+                            if len(idx) < bs:  # wrap around for tiny datasets
+                                idx = np.concatenate([idx, perm[:bs - len(idx)]])
+                    lo, hi = self.local_rows(bs)
+                    share = {"share": (hi - lo) / bs} if self.mesh.distributed else {}
+                    with tracing.span("solver.gather", request):
+                        batch = self.gather(arrays, idx[lo:hi])
+                    with tracing.span("solver.step", request):
+                        aux = self.train_step(batch, self.draws(bs), **share)
+                    with tracing.span("solver.loss_read", request):
+                        epoch_losses.append(float(aux["loss"]))   # synchronises the device
+                    self.global_step += 1
+                    if early_val and step % int(args.log_iterations) == 0:
+                        with tracing.span("solver.validate", self.global_step):
+                            val_early = self._validate(val_arrays, val_data.num_rays,
+                                                       epoch=self.global_step)
+                        self.history.setdefault("val_loss_early", []).append(val_early)
+                self.history.setdefault("step_loss", []).extend(epoch_losses)
+                train_loss = float(np.mean(epoch_losses))
+                if int(getattr(args, "check_nans", 0)) and not np.isfinite(train_loss):
+                    report = nan_report(self.models)
+                    raise RuntimeError(
+                        f"non-finite train loss {train_loss} at epoch {epoch}"
+                        + (f"; non-finite params:\n{report}" if report else
+                           " (params still finite - NaN originated in the loss)"))
+                with tracing.span("solver.validate"):
+                    val_loss = self._validate(val_arrays, val_data.num_rays,
+                                              epoch=self.epoch_offset + epoch,
+                                              full=epoch == int(args.num_epochs) - 1)
+                dt = time.time() - t0
+                rays_per_sec = steps_per_epoch * bs / dt
+                self.history["train_loss"].append(train_loss)
+                self.history["val_loss"].append(val_loss)
+                self._log("loss/train", train_loss)
+                self._log("loss/val", val_loss)
+                self._log("perf/rays_per_sec", rays_per_sec)
+                print(f"[epoch {self.epoch_offset + epoch}] train {train_loss:.5f} "
+                      f"val {val_loss:.5f} psnr {mse2psnr(max(val_loss / 2, 1e-10)):.2f} "
+                      f"({rays_per_sec:,.0f} rays/s)")
+                if self.rerenders:
+                    self._log_rerenders(val_arrays, val_data, epoch)
+                if callback is not None:
+                    callback(self, epoch)
+                if self.log_dir:
+                    with tracing.span("solver.save"):
+                        # every rank: the saves gather tensor-parallel shards; rank 0 writes
+                        self.save_run(self.log_dir)
+                        # machine-readable per-epoch curve (absolute epoch numbering
+                        # survives --load_run resumes)
+                        self.val_curve.append({
+                            "epoch": self.epoch_offset + epoch,
+                            "train_loss": float(train_loss), "val_loss": float(val_loss),
+                            "psnr_estimate": float(mse2psnr(max(val_loss / 2, 1e-10))),
+                            "rays_per_sec": round(rays_per_sec, 1)})
+                        if self.mesh.rank == 0:
+                            with open(os.path.join(self.log_dir, "val_curve.json"), "w") as fh:
+                                json.dump(self.val_curve, fh, indent=1)
+                        # full-fidelity resume state: a run cut mid-way resumes
+                        # without restarting Adam cold
+                        self.save_train_state(self.log_dir, self.epoch_offset + epoch,
+                                              min(self.best_val, val_loss))
+                        # keep the best-validation snapshot separately (validation is
+                        # noisy under sigma noise, so the final epoch can regress)
+                        if val_loss <= min(self.history["val_loss"] + [self.best_val]):
+                            self.best_val = val_loss
+                            self.save_run(os.path.join(self.log_dir, "best"))
         return self.models
 
     def _validate(self, val_arrays, n_val: int, epoch: int = 0, full: bool = False) -> float:

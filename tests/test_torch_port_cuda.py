@@ -143,11 +143,11 @@ def test_fused_v2_kernel_matches_plain(gen, cuda, n_layers, width, pos_f, dir_f,
     net = _net(cuda, n_layers, width, pos_f, dir_f, skips, use_dir, seed=width)
     spec = fused_mlp.spec_from_model(net)
     x = _rows(gen, 1000, cuda)          # 1000 = 15 full 64-row tiles + a ragged one
-    before = fused_mlp_v2.launches
+    before, rows = fused_mlp_v2.launches, fused_mlp_v2.rows
     got = fused_mlp_v2.fused_apply_raw(spec, net, x)
     want = fused_mlp_v2.reference_forward_raw(spec, fused_mlp.flatten_params(spec, net), x)
     torch.cuda.synchronize()
-    assert fused_mlp_v2.launches == before + 1
+    assert (fused_mlp_v2.launches - before, fused_mlp_v2.rows - rows) == (1, 1000)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= MLP_REL * float(want.abs().max())
 

@@ -2,7 +2,7 @@
 
 `--check_nans` (`solver.nan_report` against JAX's report on the same
 non-finite leaves; the epoch check through the CLI), `--profile_dir` (a
-Chrome trace of the training), the logging module (the rerender grid's
+Chrome trace of the training that names the program's spans), the logging module (the rerender grid's
 panels against the arrays JAX's matplotlib figure is drawn from, the
 vedo_data files against JAX's), and the solver's logging through a writer.
 Sizes: a 4x4 or 8x8 two-view dataset, one or two steps of 2x16 nets.
@@ -143,6 +143,7 @@ def test_profile_dir_writes_a_chrome_trace_of_the_training(rng, tmp_path):
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("linear" in n or "addmm" in n or "matmul" in n for n in names)
     assert any("Optimizer.step" in n for n in names)
+    assert {"solver.step", "pass.net"} <= names
 
 
 # --------------------------------------------------------------------- writer
