@@ -44,9 +44,13 @@ gets [prefix || xyz || unit dir] and encodes them itself. For a RenderRayNet:
   * use_fused_mlp=2: raw 24 B/sample rows to the fused v2 kernels
     (ops/fused_mlp_v2.py), forward and, under autograd, backward; prefix-free
     nets only on the card,
-  * use_fused_mlp=-1 (auto): as JAX's auto picks on its accelerator, mode 2
-    on CUDA for each net the v2 kernels take (prefix-free, bf16, W <= 256),
-    else mode 0; always mode 0 on the CPU.
+  * use_fused_mlp=-1 (auto): each net gets one mode for passes under autograd
+    and one for passes without it (`resolve_fused_modes_auto`). On CUDA a
+    prefix-free net the v2 kernels take (bf16, W <= 256) runs mode 2 in both,
+    as JAX's auto picks on its accelerator; a prefixed bf16 net that kernel D
+    takes runs the plain net under autograd (JAX's choice, for training) and
+    kernel D's forward without it (renders, validation); everything else, and
+    every net on the CPU, runs mode 0.
 A SIREN or grid net always runs its own forward: auto leaves it there, and an
 explicit --use_fused_mlp=1|2 raises (JAX silently runs such a net plain).
 Spans (`tracing`): `pass.coarse` and `pass.fine` hold a pass; inside them
@@ -58,7 +62,7 @@ smpl_estimator trains a CNN with no render pipeline (training/estimator.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -69,6 +73,7 @@ from smpl_nerf_tpu_torch.core.integrate import raw2outputs
 from smpl_nerf_tpu_torch.core.sampling import coarse_sampling, fine_sampling
 from smpl_nerf_tpu_torch.models import RenderRayNet
 from smpl_nerf_tpu_torch.models import smpl as smpl_mod
+from smpl_nerf_tpu_torch.models.render_ray_net import Dense
 from smpl_nerf_tpu_torch.ops import fused_mlp as fused_mod
 from smpl_nerf_tpu_torch.ops import fused_mlp_v2 as fused_v2
 from smpl_nerf_tpu_torch.ops.vertex_attention import vertex_attention_warp
@@ -202,12 +207,37 @@ def resolve_fused_mode_auto(spec, pos_enc, dir_enc, device: torch.device) -> int
     return 0
 
 
+def resolve_fused_modes_auto(spec, pos_enc, dir_enc,
+                             device: torch.device) -> Tuple[int, int]:
+    """--use_fused_mlp=-1 (auto) as (mode under autograd, mode without it).
+
+    Under autograd, JAX's choice (`resolve_fused_mode_auto`). Without it, a
+    prefixed net that kernel D takes runs D's forward on CUDA: JAX's reason
+    to keep it plain was training, and a pass with no backward meets neither
+    v2's slower prefixed step nor mode 1's float32 backward. On the CPU, and
+    for every other net, the same mode both ways."""
+    train = resolve_fused_mode_auto(spec, pos_enc, dir_enc, device)
+    if (train == 0 and device.type == "cuda" and spec.additional_input_dim
+            and not fused_mod.kernel_supports(spec)):
+        return 0, 1
+    return train, train
+
+
+def _split_layers(net: torch.nn.Module) -> bool:
+    """Whether --tensor_parallel swapped a layer of `net` for its column-parallel
+    subclass of Dense (parallel/tp.py), which it does after the pipeline is built."""
+    return any(isinstance(m, Dense) and type(m) is not Dense for m in net.modules())
+
+
 def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
     """run(key, samples [R,S,3], dirs_unit [R,S|1,3], prefix [R,P] | None) -> raw [R,S,4].
 
-    Each net's mode is resolved and checked here, on the device its weights
-    lie on, so a configuration the kernels cannot take fails when the
-    pipeline is built rather than at the first batch."""
+    Each net's modes, under autograd and without it, are resolved and
+    checked here, on the device its weights lie on, so a configuration the
+    kernels cannot take fails when the pipeline is built rather than at the
+    first batch. Where the two differ (auto's route to kernel D), each call
+    reads the grad mode; a net that tensor parallelism split keeps the mode
+    under autograd."""
     pos_enc = encoders["position"]
     dir_enc = encoders["direction"]
     modes, specs = {}, {}
@@ -223,16 +253,19 @@ def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
                     f"--use_fused_mlp={cfg.use_fused_mlp}: the fused kernels run "
                     f"RenderRayNet only, and {key} is a {type(models[key]).__name__}; "
                     "use --use_fused_mlp=0 or -1")
-            modes[key] = 0
+            modes[key] = (0, 0)
             continue
         spec = fused_mod.spec_from_model(models[key])
         device = next(models[key].parameters()).device
-        mode = int(cfg.use_fused_mlp)
+        mode = no_grad_mode = int(cfg.use_fused_mlp)
         if mode < 0:
-            mode = resolve_fused_mode_auto(spec, pos_enc, dir_enc, device)
+            mode, no_grad_mode = resolve_fused_modes_auto(spec, pos_enc, dir_enc, device)
             if mode:
                 print(f"use_fused_mlp=auto: fused v{mode} selected for {key} "
                       f"(W={spec.width})")
+            elif no_grad_mode:
+                print(f"use_fused_mlp=auto: fused v1 (kernel D) selected for {key} "
+                      f"without autograd (W={spec.width})")
         if mode >= 2:
             if not fused_v2.supports(spec, pos_enc, dir_enc):
                 raise ValueError("--use_fused_mlp=2 needs 3-coord sin/cos encoders without "
@@ -244,15 +277,19 @@ def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
             reason = fused_mod.kernel_supports(spec) if device.type == "cuda" else ""
             if reason:
                 raise ValueError(f"--use_fused_mlp=1 on CUDA: {reason}")
-        modes[key], specs[key] = mode, spec
+        modes[key], specs[key] = (mode, no_grad_mode), spec
 
     def _rows(parts, R, S):
-        return torch.cat([p.expand(R, S, p.shape[-1]).reshape(R * S, -1) for p in parts], -1)
+        # one copy: cat reads the broadcast parts (a prefix per ray) in place
+        return torch.cat([p.expand(R, S, p.shape[-1]) for p in parts], -1).reshape(R * S, -1)
 
     def run(key, samples, dirs_unit, prefix=None):
         R, S = samples.shape[:2]
         net = models[key]
-        mode = modes[key]
+        mode, no_grad_mode = modes[key]
+        # auto's no-grad route: kernel D's forward, on the pack `packed` caches
+        to_d = (no_grad_mode != mode and not torch.is_grad_enabled()
+                and not _split_layers(net))
         lead = [] if prefix is None else [prefix[:, None, :]]
         if getattr(net, "takes_raw", False):
             raw = net(_rows(lead + [samples, dirs_unit], R, S))
@@ -262,7 +299,9 @@ def _make_net_runner(cfg: RenderConfig, models, encoders) -> Callable:
             raw = fused_v2.fused_apply_raw(specs[key], net, rows)
             return raw.reshape(R, S, raw.shape[-1])
         inputs = _rows(lead + [pos_enc.encode(samples), dir_enc.encode(dirs_unit)], R, S)
-        if mode:
+        if to_d:
+            raw = fused_mod.fused_forward_cuda(specs[key], net, inputs.contiguous())
+        elif mode:
             raw = fused_mod.fused_apply(specs[key], net, inputs.contiguous())
         else:
             raw = net(inputs)

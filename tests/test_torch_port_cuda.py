@@ -641,23 +641,49 @@ def test_culled_renderers_on_cuda_launch_the_kernels_at_an_odd_budget(gen, cuda,
     assert float((fast.make_fast_renderer(pipe, 1.0)(tb) - full).abs().max()) <= 1e-4
 
 
-def test_auto_fused_mode_on_cuda_keeps_prefixed_nets_on_the_plain_net(gen, cuda):
-    args = _append_args("append_smpl_params", "--use_fused_mlp=-1")
+def _append_pipelines(cuda, model_type, *modes):
+    """Pipelines of one set of seeded append nets on the card, one a mode."""
+    args = _append_args(model_type, f"--use_fused_mlp={modes[0]}")
     models, encoders = factory.build_models_and_params(args, seed=3, device=cuda)
-    pipe = build_pipeline(RenderConfig.from_args(args), models, encoders)
+    return [build_pipeline(RenderConfig.from_args(_append_args(model_type,
+                                                               f"--use_fused_mlp={m}")),
+                           models, encoders) for m in modes]
+
+
+def test_auto_fused_mode_on_cuda_keeps_prefixed_nets_on_the_plain_net(gen, cuda):
+    """Under autograd (training) auto keeps the prefixed nets on the plain
+    net, as JAX's resolver does: neither D nor B, and what --use_fused_mlp=0
+    renders. An explicit --use_fused_mlp=2 takes them to kernel B, never D."""
+    auto, plain, v2 = _append_pipelines(cuda, "append_smpl_params", -1, 0, 2)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in _smpl_batch(gen, 64).items()}
     before = (fused_mlp.launches, fused_mlp_v2.launches)
-    with torch.no_grad():
-        out = pipe({k: torch.from_numpy(v).to(cuda) for k, v in _smpl_batch(gen, 64).items()})
+    out = auto(batch)["rgb_fine"]
+    assert out.requires_grad
     assert (fused_mlp.launches, fused_mlp_v2.launches) == before
-    assert torch.isfinite(out["rgb_fine"]).all()
-    # an explicit --use_fused_mlp=2 takes them to kernel B, and never to D
-    pipe = build_pipeline(RenderConfig.from_args(_append_args("append_smpl_params",
-                                                              "--use_fused_mlp=2")),
-                          models, encoders)
     with torch.no_grad():
-        out = pipe({k: torch.from_numpy(v).to(cuda) for k, v in _smpl_batch(gen, 64).items()})
+        assert torch.equal(out.detach(), plain(batch)["rgb_fine"])
+        out = v2(batch)["rgb_fine"]
     assert (fused_mlp.launches - before[0], fused_mlp_v2.launches - before[1]) == (0, 2)
-    assert torch.isfinite(out["rgb_fine"]).all()
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("model_type", ["append_to_nerf", "append_smpl_params"])
+@pytest.mark.parametrize("no_grad", [torch.no_grad, torch.inference_mode])
+def test_auto_fused_mode_on_cuda_sends_prefixed_no_grad_passes_to_kernel_d(gen, cuda,
+                                                                           model_type, no_grad):
+    """Without autograd auto sends each prefixed net to kernel D (two launches,
+    no B) and renders what --use_fused_mlp=1 renders, bit for bit."""
+    auto, fused1 = _append_pipelines(cuda, model_type, -1, 1)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in _smpl_batch(gen, 300).items()}
+    before = (fused_mlp.launches, fused_mlp_v2.launches)
+    with no_grad():
+        out = auto(batch)
+        launched = (fused_mlp.launches - before[0], fused_mlp_v2.launches - before[1])
+        want = fused1(batch)
+    assert launched == (2, 0)
+    for key in ("rgb_coarse", "rgb_fine"):
+        assert torch.isfinite(out[key]).all()
+        assert torch.equal(out[key], want[key]), key
 
 
 def test_sample_pdf_kernel_under_grad_with_detached_inputs(gen, cuda):

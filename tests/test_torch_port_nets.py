@@ -42,7 +42,8 @@ from smpl_nerf_tpu_torch import pipelines
 from smpl_nerf_tpu_torch.cli import render_path
 from smpl_nerf_tpu_torch.models import RenderRayNet
 from smpl_nerf_tpu_torch.models.grid_nerf import GridNerf, trilinear_interpolate
-from smpl_nerf_tpu_torch.models.render_ray_net import SirenRenderRayNet
+from smpl_nerf_tpu_torch.models.render_ray_net import Dense, SirenRenderRayNet
+from smpl_nerf_tpu_torch.ops import fused_mlp
 from smpl_nerf_tpu_torch.training import checkpoints, factory, solver
 
 F32_REL = 1e-5
@@ -297,6 +298,60 @@ def test_auto_mode_resolves_only_render_ray_nets(rng, monkeypatch, capsys, net):
     with torch.no_grad():
         a, p = auto(batch), plain(batch)
     assert torch.equal(a["rgb_fine"], p["rgb_fine"])
+
+
+class _SplitDense(Dense):
+    """Stands for parallel/tp.ColumnParallelDense: a subclass of Dense."""
+
+
+@pytest.mark.parametrize("net", ["relu", "siren", "split"])
+def test_auto_mode_sends_prefixed_no_grad_passes_to_kernel_d(rng, monkeypatch, capsys, net):
+    """With the resolver answering as on the card, each bf16 RenderRayNet of an
+    append pipeline calls kernel D's forward (a recording stand-in over its
+    plain version) once a pass without autograd, rendering what an explicit
+    --use_fused_mlp=1 renders, and never under autograd, where it renders as
+    the plain net; a SIREN prefixed net never calls it, nor a net whose layer
+    tensor parallelism swapped for a subclass of Dense after the build."""
+    resolve = pipelines.resolve_fused_modes_auto
+    monkeypatch.setattr(pipelines, "resolve_fused_modes_auto",
+                        lambda spec, pos, dirs, device: resolve(spec, pos, dirs,
+                                                                torch.device("cuda")))
+    calls = []
+
+    def kernel_d(spec, net, rows):
+        calls.append((rows.dtype, rows.shape[1] == spec.in_dim, torch.is_grad_enabled()))
+        return fused_mlp.reference_forward(spec, fused_mlp.flatten_params(spec, net), rows)
+
+    monkeypatch.setattr(fused_mlp, "fused_forward_cuda", kernel_d)
+    argv = _argv("append_smpl_params", "siren", fused=-1, extra=("--compute_dtype=bfloat16",))
+    if net != "siren":
+        argv = [a for a in argv if a != "--siren=1"]
+    auto = _port_pipeline(argv)
+    out = capsys.readouterr().out
+    batch = {k: torch.from_numpy(v) for k, v in _batch(rng).items()}
+    if net == "split":
+        auto.models["model_coarse"].positional_net[0].__class__ = _SplitDense
+        with torch.no_grad():
+            auto(batch)
+        assert calls == [(torch.float32, True, False)]     # the fine net's alone
+        return
+    with torch.no_grad():
+        rendered = auto(batch)["rgb_fine"]
+    trained = auto(batch)["rgb_fine"]
+    if net == "siren":
+        assert calls == [] and "kernel D" not in out
+        return
+    assert type(auto.models["model_coarse"]) is RenderRayNet
+    assert "fused v1 (kernel D) selected for model_coarse without autograd" in out
+    assert calls == [(torch.float32, True, False)] * 2
+    for mode, want in ((1, rendered), (0, trained)):
+        other = _port_pipeline([a.replace("--use_fused_mlp=-1", f"--use_fused_mlp={mode}")
+                                for a in argv])
+        for key in ("model_coarse", "model_fine"):
+            other.models[key].load_state_dict(auto.models[key].state_dict())
+        with torch.no_grad():
+            assert torch.equal(other(batch)["rgb_fine"], want.detach())
+    assert len(calls) == 2
 
 
 def test_grid_run_renders_the_same_through_fast_1_at_full_cap(tmp_path):

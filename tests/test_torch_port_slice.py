@@ -25,6 +25,7 @@ from smpl_nerf_tpu import config as jax_config
 from smpl_nerf_tpu import pipelines as jax_pipelines
 from smpl_nerf_tpu.cli import inference as jax_inference
 from smpl_nerf_tpu.core import cameras as jax_cameras
+from smpl_nerf_tpu.core import encoding as jax_encoding
 from smpl_nerf_tpu.data import datasets as jax_datasets
 from smpl_nerf_tpu.ops import fused_mlp as jax_fused_mlp
 from smpl_nerf_tpu.training import checkpoints as jax_checkpoints
@@ -180,6 +181,43 @@ def test_auto_fused_mode_follows_the_jax_resolver():
     jspec = jax_fused_mlp.spec_from_model(jmodels["model_coarse"])
     assert jax_pipelines.resolve_fused_mode_auto(
         jspec, jencoders["position"], jencoders["direction"], "tpu") == 2
+
+
+def test_auto_fused_modes_send_prefixed_no_grad_passes_to_kernel_d():
+    """Auto's two modes, (under autograd, without it): on CUDA a prefix-free
+    bf16 net takes v2 both ways; a prefixed bf16 net that kernel D takes runs
+    plain under autograd, as JAX's resolver picks, and D without it; a
+    float32 or too-wide net, or a prefix-free one with an identity encoder,
+    runs plain both ways; on the CPU every net runs plain."""
+    extra = ("--compute_dtype=bfloat16",)
+    args = port_config.config_parser().parse_args(_argv(extra=extra))
+    models, encoders = factory.build_models_and_params(args, device="cpu")
+    pos, dirs = encoders["position"], encoders["direction"]
+    spec = fused_mlp.spec_from_model(models["model_coarse"])
+    prefixed = dataclasses.replace(spec, additional_input_dim=621)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    modes = pipelines.resolve_fused_modes_auto
+    assert modes(spec, pos, dirs, cuda) == (2, 2)
+    assert modes(prefixed, pos, dirs, cuda) == (0, 1)
+    for net in (spec, prefixed):
+        assert modes(net, pos, dirs, cpu) == (0, 0)
+        for unsupported in (dataclasses.replace(net, dtype="float32"),
+                            dataclasses.replace(net, width=384)):
+            assert modes(unsupported, pos, dirs, cuda) == (0, 0)
+    with_identity = PositionalEncoder(pos.number_frequencies, True)
+    assert modes(spec, with_identity, dirs, cuda) == (0, 0)
+
+    # the flagship's nets (configs/config.txt): under autograd JAX's choice
+    flagship = fused_mlp.MlpSpec(n_layers=8, width=256, positions_dim=60, directions_dim=24,
+                                 additional_input_dim=621, skips=(4,), dtype="bfloat16")
+    jflagship = jax_fused_mlp.MlpSpec(n_layers=8, width=256, positions_dim=60,
+                                      directions_dim=24, additional_input_dim=621, skips=(4,),
+                                      dtype="bfloat16")
+    pos10, dirs4 = PositionalEncoder(10, False), PositionalEncoder(4, False)
+    want = jax_pipelines.resolve_fused_mode_auto(
+        jflagship, jax_encoding.PositionalEncoder(10, False),
+        jax_encoding.PositionalEncoder(4, False), "tpu")
+    assert modes(flagship, pos10, dirs4, cuda) == (want, 1) == (0, 1)
 
 
 def test_unported_model_types_and_modes_raise():
