@@ -156,7 +156,8 @@ MODEL_TYPES = [
 
 
 def config_parser() -> ConfigArgumentParser:
-    """Training flag surface: the same flags and defaults as smpl_nerf_tpu.config."""
+    """Training flag surface: the same flags and defaults as smpl_nerf_tpu.config, and
+    one flag more, --smpl_model_path (JAX's training parser lacks it)."""
     parser = ConfigArgumentParser()
     parser.add_argument("--config", is_config_file=True, default="configs/config.txt",
                         help="config file path")
@@ -309,6 +310,10 @@ def config_parser() -> ConfigArgumentParser:
                         help=">0 (the SMPL-driven families, in-step vertex_sphere): "
                              "draw each ray batch from this many images, so the in-step "
                              "SMPL work runs on at most that many poses")
+    parser.add_argument("--smpl_model_path", type=str, default=None,
+                        help="a licensed SMPL model pkl (basicModel_*_lbs_10_207_0_v1.0.0.pkl) "
+                             "for the SMPL-driven families and vertex_sphere; None: the "
+                             "procedural human. A path that names no file raises")
     parser.add_argument("--seed", type=int, default=0)
     return parser
 

@@ -17,6 +17,9 @@ Two ways to get a model, as in the JAX package:
 Pose convention: body_pose[69] is the axis-angle of joints 1..23;
 pose[3*(j-1):3*j] rotates the subtree below joint j about joint j. The arm
 angles at indices 38 / 41 are the z-rotations of the collar joints 13 / 14.
+
+`lbs_calls` counts the calls of `smpl_forward`, `lbs_poses` the poses they
+skinned (no device sync).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import numpy as np
 import torch
 
 NUM_JOINTS = 24
+lbs_calls = 0         # smpl_forward calls
+lbs_poses = 0         # poses they skinned
 PARENTS = np.array([-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12,
                     13, 14, 16, 17, 18, 19, 20, 21], np.int32)
 
@@ -94,11 +99,14 @@ def smpl_forward(model: SmplModel, betas, body_pose, global_orient=None,
     Runs on body_pose's device (a numpy pose runs on the CPU). The chain walk
     is a Python loop over the fixed 24-joint tree, batched over the poses.
     """
+    global lbs_calls, lbs_poses
     body_pose = torch.as_tensor(body_pose, dtype=torch.float32)
     device = body_pose.device
     lead = body_pose.shape[:-1]
     pose = body_pose.reshape(-1, 23, 3)
     P = pose.shape[0]
+    lbs_calls += 1
+    lbs_poses += P
     t = model.tensors(device)
     betas = torch.as_tensor(betas, dtype=torch.float32, device=device).reshape(-1)
     nb = min(betas.shape[0], t["shapedirs"].shape[-1])

@@ -17,10 +17,15 @@ would change the numbers: at the default temperature (1e4) an attention logit
 is a distance times 1e4.
 
 This runs outside any kernel in the JAX package too; plain PyTorch is its port.
+`calls` counts the calls of `vertex_attention_warp`, `pairs` the (sample,
+vertex) pairs R*S*V they took, from the shapes (no device sync).
 """
 from __future__ import annotations
 
 import torch
+
+calls = 0             # vertex_attention_warp calls
+pairs = 0             # (sample, vertex) pairs they attended over
 
 
 def _dist(samples: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
@@ -38,8 +43,11 @@ def vertex_attention_warp(samples: torch.Tensor, goal_vertices: torch.Tensor,
     samples [R, S, 3]; goal_vertices [R, V, 3] (each ray's goal mesh);
     warp_vectors [R, V, 3] (canonical - goal, per vertex). Returns [R, S, 3].
     """
+    global calls, pairs
     R, S, _ = samples.shape
     V = goal_vertices.shape[1]
+    calls += 1
+    pairs += R * S * V
     chunks = [slice(lo, min(lo + chunk_size, V)) for lo in range(0, V, chunk_size)]
 
     def att(c):

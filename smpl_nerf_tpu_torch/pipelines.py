@@ -56,7 +56,10 @@ explicit --use_fused_mlp=1|2 raises (JAX silently runs such a net plain).
 Spans (`tracing`): `pass.coarse` and `pass.fine` hold a pass; inside them
 `pass.sample` (coarse sampling, or the fine inverse-CDF sampling: kernel A),
 `pass.warp` (the warp field or vertex attention), `pass.net` (the runner: B,
-D or PyTorch's layers) and `pass.integrate` (`raw2outputs`).
+D or PyTorch's layers) and `pass.integrate` (`raw2outputs`). `pass.lbs`,
+before the coarse pass, holds the SMPL-driven families' in-step LBS of the
+batch's poses, and for the two attention families the per-vertex warps
+canonical - goal and the per-ray gathers.
 smpl_estimator trains a CNN with no render pipeline (training/estimator.py).
 """
 from __future__ import annotations
@@ -400,12 +403,13 @@ class FamilyPasses:
         if mt in ("smpl_nerf", "append_to_nerf"):
             return two_joint_pose(self.cfg, batch)
         if mt in DYNAMIC_FAMILIES:
-            verts, ray_pos = self.goal_verts_table(batch["image_indices"])
-            if mt == "append_vertex_locations_to_nerf":
-                # embedded once per image of the table, then gathered per ray
-                return self.models["vertex_embedder"](verts.reshape(verts.shape[0], -1))[ray_pos]
-            warps = self.canonical_vertices(verts.device)[None] - verts
-            return verts[ray_pos], warps[ray_pos]
+            with tracing.span("pass.lbs"):
+                verts, ray_pos = self.goal_verts_table(batch["image_indices"])
+                if mt != "append_vertex_locations_to_nerf":
+                    warps = self.canonical_vertices(verts.device)[None] - verts
+                    return verts[ray_pos], warps[ray_pos]
+            # embedded once per image of the table, then gathered per ray
+            return self.models["vertex_embedder"](verts.reshape(verts.shape[0], -1))[ray_pos]
         return None
 
     def prefix(self, pose: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

@@ -62,13 +62,15 @@ def compute_dtype(args) -> torch.dtype:
 
 
 def smpl_model_for(args) -> smpl_mod.SmplModel:
-    """The SMPL model of a run, chosen as the JAX package's cli/train.py
-    chooses it: the pkl at `args.smpl_model_path` when that attribute names a
-    file (no training flag sets it), else the procedural human. Kept on
-    `args._smpl_model`, so a run builds it once."""
+    """The SMPL model of a run: the pkl that --smpl_model_path names, else
+    (None) the procedural human, as the JAX package's cli/train.py chooses it.
+    A path that names no file raises. Kept on `args._smpl_model`, so a run
+    builds it once."""
     if getattr(args, "_smpl_model", None) is None:
         path = getattr(args, "smpl_model_path", None)
-        args._smpl_model = (smpl_mod.load_smpl_pkl(path) if path and os.path.exists(path)
+        if path and not os.path.isfile(path):
+            raise FileNotFoundError(f"--smpl_model_path {path!r} names no file")
+        args._smpl_model = (smpl_mod.load_smpl_pkl(path) if path
                             else smpl_mod.procedural_human())
     return args._smpl_model
 
