@@ -33,9 +33,13 @@ unguarded, so that any failure exits non-zero:
      H=32, O=4, tile 256, in bf16 and in float32; its headline numbers come
      from phase 10, on the plan of a chunk that the distill path serves) and F
      (relu-matmul at n=131,072, W=256/512/1024, beside the library call
-     torch.relu(x @ w)); A, B and D also at the shapes of phase 10b's
-     whole-image 256^2 batch (A at R = 65,536, B at 12,582,912 rows, D at
-     8,388,608 rows of 705 floats; timed over 5 calls: by_rays / by_rows);
+     torch.relu(x @ w)) and G (the vertex attention, against its eager path
+     at port_bench's dummy_dynamic.train shapes: 2048 and 4096 rays of 64
+     samples over 6,890 vertices, radius 0.15, T = 1e4; twice, bit for bit;
+     its bound from port_bench/counts_dynamic.py); A, B and D also at the
+     shapes of phase 10b's whole-image 256^2 batch (A at R = 65,536, B at
+     12,582,912 rows, D at 8,388,608 rows of 705 floats; timed over 5 calls:
+     by_rays / by_rows);
      then A, B, C and D at a culled fine pass's shapes (K =
      711 rays of a 2048-ray batch: K, K*64, K*128 and K*192 rows, none a
      multiple of a tile), under the same bounds, except that C's dX max is
@@ -137,8 +141,10 @@ unguarded, so that any failure exits non-zero:
      human) on phase 7's dataset, whose transforms.json carries the poses and
      betas. dummy_dynamic through the kernel path (--use_fused_mlp=-1, the
      auto mode: B forward and C backward on rows whose directions differ per
-     sample) and append_vertex_locations_to_nerf with --run_fine=1
-     --use_fused_mlp=1 --use_pallas=1 (A, and D at in_dim 148), each:
+     sample; G, which takes every CUDA attention with no gradient to keep,
+     whatever the flags, so its plain path runs G too) and
+     append_vertex_locations_to_nerf with --run_fine=1 --use_fused_mlp=1
+     --use_pallas=1 (A, and D at in_dim 148), each:
      SMPL_STEPS training steps of 2048 rays with their launch counts, the
      plain path from the same seed (its first loss within LOSS_REL),
      inference_torch on the run (PNGs, walking.gif, scores.json), the val
@@ -381,6 +387,10 @@ LOSS_REL, LOSS_STEPS = 0.10, 8
 EXPERT_D, EXPERT_H, EXPERT_TILE, L_POS, L_DIR = 42, 32, 256, 4, 2
 EXPERT_F32_REL, EXPERT_BF16_ABS = 2e-5, 5e-2
 RELU_ROWS, RELU_WIDTHS, RELU_REL, RELU_ABS = 131072, (256, 512, 1024), 2.0 ** -7, 5e-5
+# kernel G at port_bench's dummy_dynamic.train: a step, its validation batch,
+# 64 coarse samples, SMPL's vertices, warp_radius and warp_temperature; its
+# bound against the eager path (tests/test_torch_port_cuda.py's ATT_REL)
+ATT_R, ATT_R_VAL, ATT_S, ATT_V, ATT_RADIUS, ATT_T, ATT_REL = 2048, 4096, 64, 6890, 0.15, 1e4, 1e-5
 DISTILL_GRID, DISTILL_SAMPLES, DISTILL_CHUNK = 20, 192, 4096
 DISTILL_STEPS, FINETUNE_STEPS, FINETUNE2_STEPS, DISTILL_REPS = 300, 100, 40, 3
 OCCUPIED_SHARE = (0.05, 0.35)   # bisection target; the contract is 2-50 %
@@ -985,22 +995,81 @@ def phase_relu_matmul(device) -> dict:
             "by_width": by_width}
 
 
+def attention_inputs(gen, R: int, S: int, V: int, device, meshes: int = 8) -> tuple:
+    """Kernel G's inputs: rays from a circle of radius 2.4 at a body-sized box
+    of V vertices, S samples a ray between 1 and 4, each ray's mesh and warp
+    vectors gathered from `meshes` poses as the pipeline gathers its table."""
+    table = gen.uniform(-1, 1, (meshes, V, 3)) * np.array([0.4, 0.9, 0.25])
+    warp_table = gen.normal(0, 0.05, (meshes, V, 3))
+    pick = gen.randint(0, meshes, R)
+    angle = gen.uniform(0, 2 * np.pi, R)
+    origins = np.stack([2.4 * np.cos(angle), gen.normal(0, 0.1, R), 2.4 * np.sin(angle)], -1)
+    dirs = table[pick, gen.randint(0, V, R)] + gen.normal(0, 0.05, (R, 3)) - origins
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    z = np.linspace(1.0, 4.0, S)[None, :] + gen.uniform(0, 3.0 / S, (R, S))
+    samples = origins[:, None, :] + z[..., None] * dirs[:, None, :]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                 for a in (samples, table[pick], warp_table[pick]))
+
+
+def phase_vertex_attention(device) -> dict:
+    """Kernel G against the eager path at a dummy_dynamic.train step's shapes
+    (ATT_R rays x ATT_S samples over ATT_V vertices, the cell's radius and
+    temperature), twice (bit for bit), with event and device times of both
+    and the bound of port_bench/counts_dynamic.py; also at the cell's
+    validation batch (ATT_R_VAL rays)."""
+    from port_bench import counts_dynamic
+    from smpl_nerf_tpu_torch.ops import vertex_attention as va
+
+    by_rays = {}
+    for R in (ATT_R, ATT_R_VAL):
+        s, g, w = attention_inputs(np.random.RandomState(R), R, ATT_S, ATT_V, device)
+        args = (s, g, w, ATT_RADIUS, ATT_T)
+        got = va.vertex_attention_cuda(*args)
+        again = va.vertex_attention_cuda(*args)
+        want = va.vertex_attention_eager(*args)
+        torch.cuda.synchronize()
+        gap = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        carried = float((got.abs().amax(-1) > 0).float().mean())
+        ms = time_ms(lambda: va.vertex_attention_cuda(*args))
+        device_ms = kernel_device_ms("vertex_attention", lambda: va.vertex_attention_cuda(*args))
+        plain_ms = time_ms(lambda: va.vertex_attention_eager(*args), reps=5, warmup=1)
+        pairs = R * ATT_S * ATT_V
+        bound_ms = 1e3 * counts_dynamic.attention_bound_s(pairs)
+        print(f"kernel G vertex_attention R={R} S={ATT_S} V={ATT_V} radius {ATT_RADIUS} "
+              f"T {ATT_T}: max|err| / max|eager| = {gap:.3e} (bound {ATT_REL}), bit-identical "
+              f"twice {torch.equal(got, again)}, samples with a warp {100 * carried:.2f} %")
+        print(f"  time: kernel {ms:.4f} ms (device {device_ms:.4f}), plain (eager) "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (operations, {pairs} pairs): "
+              f"{100 * bound_ms / device_ms:.1f} % of it")
+        check(bool(torch.isfinite(got).all()), "vertex_attention gave non-finite warps")
+        check(torch.equal(got, again), "vertex_attention differs from run to run")
+        check(gap <= ATT_REL, f"vertex_attention R={R} disagrees with the eager path")
+        by_rays[str(R)] = {"max_rel_err": gap, "ms": ms, "device_ms": device_ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "operations"}
+    return {"name": "vertex_attention", "route": "cuda",
+            "source": "smpl_nerf_tpu_torch/csrc/vertex_attention.cu",
+            "replaces": "none: smpl_nerf_tpu/ops/vertex_attention.py runs a lax.scan",
+            "parity_ok": True, "library_ms": None, **by_rays[str(ATT_R)], "by_rays": by_rays}
+
+
 def launch_counts() -> dict:
     from smpl_nerf_tpu_torch.ops import (expert_tiles, fused_mlp, fused_mlp_v2, relu_matmul,
-                                         sample_pdf_cuda)
+                                         sample_pdf_cuda, vertex_attention)
 
     return {"sample_pdf": sample_pdf_cuda.launches, "fused_mlp_v2_fwd": fused_mlp_v2.launches,
             "fused_mlp_fwd": fused_mlp.launches, "fused_mlp_v2_bwd": fused_mlp_v2.launches_bwd,
-            "expert_tiles": expert_tiles.launches, "relu_matmul": relu_matmul.launches}
+            "expert_tiles": expert_tiles.launches, "relu_matmul": relu_matmul.launches,
+            "vertex_attention": vertex_attention.launches}
 
 
 def zero_launch_counts() -> None:
     from smpl_nerf_tpu_torch.ops import (expert_tiles, fused_mlp, fused_mlp_v2, relu_matmul,
-                                         sample_pdf_cuda)
+                                         sample_pdf_cuda, vertex_attention)
 
     sample_pdf_cuda.launches = fused_mlp_v2.launches = 0
     fused_mlp.launches = fused_mlp_v2.launches_bwd = 0
-    expert_tiles.launches = relu_matmul.launches = 0
+    expert_tiles.launches = relu_matmul.launches = vertex_attention.launches = 0
 
 
 def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=(),
@@ -1472,7 +1541,9 @@ KERNEL_SYMBOLS = (("sample_pdf", ("sample_pdf_kernel",)),
                   ("fused_mlp_v2_bwd", ("fused_mlp_v2_bwd_kernel", "fused_mlp_v2_dw_kernel",
                                         "fused_mlp_v2_dw_reduce_kernel")),
                   ("expert_tiles", ("expert_tiles_kernel",)),
-                  ("relu_matmul", ("relu_matmul_kernel",)))
+                  ("relu_matmul", ("relu_matmul_kernel",)),
+                  ("vertex_attention", ("vertex_attention_max_kernel",
+                                        "vertex_attention_sum_kernel")))
 
 
 def profiled(what: str, fn, top: int = 10) -> dict:
@@ -2105,6 +2176,7 @@ def phase_smpl_family(tmp: str, dataset_dir: str, what: str, model_type: str,
     from smpl_nerf_tpu_torch.cli import inference
     from smpl_nerf_tpu_torch.core.sampling import coarse_sampling
     from smpl_nerf_tpu_torch.data import datasets
+    from smpl_nerf_tpu_torch.ops import vertex_attention
     from smpl_nerf_tpu_torch.ops.vertex_attention import vertex_attention_warp
 
     val_dir = os.path.join(dataset_dir, "val")
@@ -2112,15 +2184,19 @@ def phase_smpl_family(tmp: str, dataset_dir: str, what: str, model_type: str,
     paths, device_ms = {}, {}
 
     zero_launch_counts()
+    calls = vertex_attention.calls
     solver, kernel_dir = smpl_family_run(tmp, dataset_dir, f"{what}_kernel", model_type,
                                          *kernel_flags, extra)
     counts = launch_counts()
+    calls = vertex_attention.calls - calls
     print(f"{what}: cli.train {model_type} configs/config.txt full width, kernel path "
           f"(--use_fused_mlp={kernel_flags[0]} --use_pallas={kernel_flags[1]} {' '.join(extra)}), "
           f"{SMPL_STEPS} steps of {BATCH} rays + {val_batches} validation batches: "
-          f"launches {counts}")
+          f"launches {counts}, vertex attention calls {calls}")
     check_counts(f"{what} training", counts, {
         k: SMPL_STEPS * per_step.get(k, 0) + val_batches * per_batch.get(k, 0) for k in counts})
+    check(counts["vertex_attention"] == calls,
+          f"{what}: {calls - counts['vertex_attention']} vertex attention calls took the eager path")
     paths[f"{what}_train"] = counts
     plain_solver, plain_dir = smpl_family_run(tmp, dataset_dir, f"{what}_plain", model_type,
                                               0, 0, extra)
@@ -3331,7 +3407,8 @@ def main() -> None:
     card = phase_card()
     ptxas = phase_build()
     kernels = [phase_sample_pdf(device), phase_fused_mlp(device), phase_fused_mlp_v1(device),
-               phase_fused_bwd(device), phase_expert_tiles(device), phase_relu_matmul(device)]
+               phase_fused_bwd(device), phase_expert_tiles(device), phase_relu_matmul(device),
+               phase_vertex_attention(device)]
     prefix_kernels = phase_fused_prefix(device)
     odd_k = phase_odd_k(device)
     for k in kernels:
@@ -3383,7 +3460,8 @@ def main() -> None:
         paths.update(phase_train_flags(tmp, dataset_dir))
         smpl_paths, smpl_ms, dynamic_run = phase_smpl_family(
             tmp, dataset_dir, "dynamic", "dummy_dynamic", (-1, 1), (),
-            {"fused_mlp_v2_fwd": 1, "fused_mlp_v2_bwd": 1}, {"fused_mlp_v2_fwd": 1})
+            {"fused_mlp_v2_fwd": 1, "fused_mlp_v2_bwd": 1, "vertex_attention": 1},
+            {"fused_mlp_v2_fwd": 1, "vertex_attention": 1})
         paths.update(smpl_paths)
         device_ms.update(smpl_ms)
         paths["dynamic_ipb_train"] = phase_images_per_batch(tmp, dataset_dir)

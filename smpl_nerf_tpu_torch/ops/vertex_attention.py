@@ -16,16 +16,31 @@ the modified softmax is applied once at the end. A per-chunk or per-row max
 would change the numbers: at the default temperature (1e4) an attention logit
 is a distance times 1e4.
 
-This runs outside any kernel in the JAX package too; plain PyTorch is its port.
+The JAX package runs this outside any kernel. On the card, a call with no
+gradient to keep launches csrc/vertex_attention.cu (a grid-wide max pass, then
+one fused pass over the vertices; see the source); a call whose inputs need
+autograd (image_wise_dynamic's arm angles reach the goal vertices through
+LBS), and every call on the CPU, takes the eager version below, which the CPU
+tests hold against the JAX package. A CUDA call in another dtype than float32
+raises: nothing falls back.
+
 `calls` counts the calls of `vertex_attention_warp`, `pairs` the (sample,
-vertex) pairs R*S*V they took, from the shapes (no device sync).
+vertex) pairs R*S*V they took, from the shapes (no device sync); `launches`
+the calls the kernel took.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
+
+from smpl_nerf_tpu_torch.ops import _build
 
 calls = 0             # vertex_attention_warp calls
 pairs = 0             # (sample, vertex) pairs they attended over
+launches = 0          # calls the kernel took
 
 
 def _dist(samples: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
@@ -42,12 +57,25 @@ def vertex_attention_warp(samples: torch.Tensor, goal_vertices: torch.Tensor,
 
     samples [R, S, 3]; goal_vertices [R, V, 3] (each ray's goal mesh);
     warp_vectors [R, V, 3] (canonical - goal, per vertex). Returns [R, S, 3].
+    CUDA inputs with no gradient to keep take the kernel, the rest the eager
+    version (`chunk_size` is the eager version's).
     """
     global calls, pairs
+    calls += 1
+    pairs += samples.shape[0] * samples.shape[1] * goal_vertices.shape[1]
+    inputs = (samples, goal_vertices, warp_vectors)
+    if samples.is_cuda and not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
+        return vertex_attention_cuda(*inputs, warp_radius, warp_temperature)
+    return vertex_attention_eager(*inputs, warp_radius, warp_temperature, chunk_size)
+
+
+def vertex_attention_eager(samples: torch.Tensor, goal_vertices: torch.Tensor,
+                           warp_vectors: torch.Tensor, warp_radius: float,
+                           warp_temperature: float, chunk_size: int = 512) -> torch.Tensor:
+    """The plain PyTorch version, differentiable: two passes over chunks of
+    `chunk_size` vertices."""
     R, S, _ = samples.shape
     V = goal_vertices.shape[1]
-    calls += 1
-    pairs += R * S * V
     chunks = [slice(lo, min(lo + chunk_size, V)) for lo in range(0, V, chunk_size)]
 
     def att(c):
@@ -71,6 +99,54 @@ def vertex_attention_warp(samples: torch.Tensor, goal_vertices: torch.Tensor,
     # outside every vertex sphere with a large m, exp(-m) underflows and the
     # 0/0 of the formula becomes 0 warp, its limit
     return numer / torch.clamp(s_exp[..., None], min=1e-30)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("vertex_attention")
+    lib.vertex_attention_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib.vertex_attention_launch.restype = ctypes.c_int
+    return lib
+
+
+def vertex_attention_cuda(samples: torch.Tensor, goal_vertices: torch.Tensor,
+                          warp_vectors: torch.Tensor, warp_radius: float,
+                          warp_temperature: float) -> torch.Tensor:
+    """Launch the kernel pair: samples [R, S, 3], goal_vertices and
+    warp_vectors [R, V, 3] (float32, one CUDA device; strided inputs are
+    copied contiguous) -> warps [R, S, 3]. No autograd."""
+    global launches
+    inputs = (samples, goal_vertices, warp_vectors)
+    if any(t.dtype != torch.float32 for t in inputs):
+        raise TypeError(f"vertex_attention_cuda takes float32, got "
+                        f"{[str(t.dtype) for t in inputs]}")
+    device = samples.device
+    if device.type != "cuda" or any(t.device != device for t in inputs):
+        raise ValueError(f"vertex_attention_cuda needs its inputs on one CUDA device, got "
+                         f"{[str(t.device) for t in inputs]}")
+    R, V = goal_vertices.shape[:2]
+    if (samples.dim() != 3 or samples.shape[0] != R or samples.shape[2] != 3
+            or goal_vertices.shape != (R, V, 3) or warp_vectors.shape != (R, V, 3)):
+        raise ValueError(f"vertex_attention_cuda takes samples [R, S, 3] and goal_vertices, "
+                         f"warp_vectors [R, V, 3], got {[tuple(t.shape) for t in inputs]}")
+    radius, temperature = float(warp_radius), float(warp_temperature)
+    if not (math.isfinite(radius) and math.isfinite(temperature)):
+        raise ValueError(f"vertex_attention_cuda takes a finite radius and temperature, got "
+                         f"{radius}, {temperature}")
+    S = samples.shape[1]
+    out = torch.empty((R, S, 3), dtype=torch.float32, device=device)
+    if R == 0 or S == 0:
+        return out
+    s, g, w = (t.contiguous() for t in inputs)
+    word = torch.empty(1, dtype=torch.int32, device=device)
+    lib = _lib()
+    err = lib.vertex_attention_launch(s.data_ptr(), g.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                      word.data_ptr(), R, S, V, radius, temperature,
+                                      _build.current_stream(device))
+    _build.check(lib, err, "vertex_attention")
+    launches += 1
+    return out
 
 
 def relu_attention_warp(samples: torch.Tensor, goal_vertices: torch.Tensor,

@@ -23,6 +23,13 @@ kernel); in bf16 one rounding can flip and the second layer carries it
 exactly and sums in float32 in another order, so an output can land on the
 other side of one bf16 rounding (2^-7 relative); next to zero, where relu
 cuts, the float32 sums themselves differ by their own rounding (5e-5).
+Kernel G (the vertex attention) rounds every logit as the eager path does
+((dx^2 + dy^2) + dz^2 with no FMA, the same sqrtf and expf) and takes the
+global max from the least squared distance, so each exp(att - M) is the
+eager path's; the sums run in another order (16 lanes, then their partials
+in lane order, against 512-vertex chunks, sum() and bmm), and exp(-M) is
+subtracted per pair rather than as exp(-M) sum_v w after the sums: 1e-5 of
+the largest warp. It has no atomics on floats, so two runs agree bit for bit.
 """
 import numpy as np
 import pytest
@@ -32,7 +39,7 @@ from smpl_nerf_tpu_torch import config
 from smpl_nerf_tpu_torch.core import sampling
 from smpl_nerf_tpu_torch.models import RenderRayNet
 from smpl_nerf_tpu_torch.ops import (expert_tiles, fused_mlp, fused_mlp_v2, occupancy,
-                                     relu_matmul, sample_pdf_cuda)
+                                     relu_matmul, sample_pdf_cuda, vertex_attention)
 from smpl_nerf_tpu_torch.parallel import ep
 from smpl_nerf_tpu_torch.pipelines import RenderConfig, build_pipeline
 from smpl_nerf_tpu_torch.render import experts as ex
@@ -42,6 +49,7 @@ from smpl_nerf_tpu_torch.training import factory, solver
 PDF_ATOL = 2e-4
 MLP_REL = 2e-2
 BWD_DX_MAX, BWD_DX_MEAN, BWD_DW_REL = 0.25, 5e-3, 3e-2
+ATT_REL = 1e-5
 
 
 @pytest.fixture
@@ -1075,3 +1083,135 @@ def test_grid_gather_backward_on_cuda_matches_the_cpu(gen, cuda):
     (f_c, g_c), (f_k, g_k) = out["cpu"], out["cuda"]
     assert float((f_k - f_c).abs().max()) <= 1e-5
     assert float((g_k - g_c).norm()) <= 1e-5 * float(g_c.norm())
+
+
+# ------------------------------------------------- kernel G: the vertex attention
+
+def _attention_inputs(gen, R, S, V, device, shift=0.0, meshes=8):
+    """Rays from a circle of radius 2.4 at a body-sized box of V vertices, each
+    ray's mesh gathered from `meshes` poses as the pipeline gathers its table
+    (8 images a batch); `shift` moves the vertices away along x. The CPU
+    tests' `_inputs` (test_torch_port_vertex_attention.py) on the card; this
+    file imports no other test module, so that it collects alone with
+    --noconftest on the card."""
+    table = gen.uniform(-1, 1, (meshes, V, 3)) * np.array([0.4, 0.9, 0.25]) + [shift, 0, 0]
+    warp_table = gen.normal(0, 0.05, (meshes, V, 3))
+    pick = gen.randint(0, meshes, R)
+    angle = gen.uniform(0, 2 * np.pi, R)
+    origins = np.stack([2.4 * np.cos(angle), gen.normal(0, 0.1, R), 2.4 * np.sin(angle)], -1)
+    target = table[pick, gen.randint(0, V, R)] - [shift, 0, 0] + gen.normal(0, 0.05, (R, 3))
+    dirs = target - origins
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    z = np.linspace(1.0, 4.0, S)[None, :] + gen.uniform(0, 3.0 / S, (R, S))
+    samples = origins[:, None, :] + z[..., None] * dirs[:, None, :]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                 for a in (samples, table[pick], warp_table[pick]))
+
+
+def _attention_gap(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("R,S,V,radius,temperature", [
+    (2048, 64, 6890, 0.15, 1e4),     # a dummy_dynamic.train step
+    (4096, 64, 6890, 0.15, 1e4),     # its validation batch
+    (2047, 64, 3445, 0.15, 1e4),     # R odd; the mesh halved, as the benchmark's fault halves it
+    (5, 64, 1, 0.15, 1e4), (9, 64, 511, 0.15, 1e4), (9, 64, 513, 0.15, 1e4),   # about a tile
+    (7, 65, 1000, 0.15, 1e4),        # S one past a chunk of 64 samples
+    (7, 16, 1000, 0.3, 100.0),       # fewer samples than a chunk; a soft temperature
+])
+def test_vertex_attention_kernel_matches_the_eager_path(gen, cuda, R, S, V, radius, temperature):
+    s, g, w = _attention_inputs(gen, R, S, V, cuda)
+    before = vertex_attention.launches
+    got = vertex_attention.vertex_attention_cuda(s, g, w, radius, temperature)
+    torch.cuda.synchronize()
+    assert vertex_attention.launches == before + 1
+    want = vertex_attention.vertex_attention_eager(s, g, w, radius, temperature)
+    assert float(want.abs().max()) > 0.0                      # some sample carries a warp
+    assert _attention_gap(got, want) <= ATT_REL
+
+
+def test_vertex_attention_kernel_where_the_correction_term_counts(gen, cuda):
+    """At T = 60, M < 104: exp(-M) is not 0, and the -exp(-M) term of the
+    modified softmax is a large part of every warp."""
+    s, g, w = _attention_inputs(gen, 512, 64, 6890, cuda)
+    m = torch.clamp((torch.relu(0.15 - vertex_attention._dist(s, g)) * 60.0).max(), min=0)
+    got = vertex_attention.vertex_attention_cuda(s, g, w, 0.15, 60.0)
+    want = vertex_attention.vertex_attention_eager(s, g, w, 0.15, 60.0)
+    correction = float(torch.exp(-m) * w.sum(1).abs().max())
+    assert float(m) < 104 and correction > 1e-2 * float(want.abs().max())
+    assert _attention_gap(got, want) <= ATT_REL
+
+
+def test_vertex_attention_kernel_is_zero_outside_every_sphere(gen, cuda):
+    """No sample within the radius of a vertex: M = 0 and every weight is
+    exactly 0 (the eager path leaves sum_v w - sum_v w in its rounding)."""
+    s, g, w = _attention_inputs(gen, 300, 64, 6890, cuda, shift=10.0)
+    got = vertex_attention.vertex_attention_cuda(s, g, w, 0.15, 1e4)
+    want = vertex_attention.vertex_attention_eager(s, g, w, 0.15, 1e4)
+    assert not bool(got.any())
+    assert float(want.abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_vertex_attention_kernel_takes_strided_inputs(gen, cuda):
+    s, g, w = _attention_inputs(gen, 257, 64, 6890, cuda)
+    want = vertex_attention.vertex_attention_cuda(s, g, w, 0.15, 1e4)
+    s_strided = s.transpose(0, 1).contiguous().transpose(0, 1)
+    g_strided = torch.cat([g, g], -1)[..., :3]
+    assert not (s_strided.is_contiguous() or g_strided.is_contiguous())
+    assert torch.equal(vertex_attention.vertex_attention_cuda(s_strided, g_strided, w, 0.15, 1e4),
+                       want)
+    half = vertex_attention.vertex_attention_cuda(s, g[:, :3445], w[:, :3445], 0.15, 1e4)
+    assert _attention_gap(half, vertex_attention.vertex_attention_eager(
+        s, g[:, :3445], w[:, :3445], 0.15, 1e4)) <= ATT_REL
+
+
+def test_vertex_attention_kernel_is_bit_identical_from_run_to_run(gen, cuda):
+    s, g, w = _attention_inputs(gen, 2048, 64, 6890, cuda)
+    first = vertex_attention.vertex_attention_cuda(s, g, w, 0.15, 1e4)
+    assert torch.equal(vertex_attention.vertex_attention_cuda(s, g, w, 0.15, 1e4), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_vertex_attention_on_cuda_refuses_another_dtype(gen, cuda, dtype):
+    s, g, w = (t.to(dtype) for t in _attention_inputs(gen, 4, 64, 100, cuda))
+    before = vertex_attention.launches
+    with torch.no_grad(), pytest.raises(TypeError):
+        vertex_attention.vertex_attention_warp(s, g, w, 0.15, 1e4)
+    assert vertex_attention.launches == before
+
+
+def test_vertex_attention_on_cuda_keeps_autograd_where_an_input_needs_it(gen, cuda):
+    """A goal mesh that requires a gradient (image_wise_dynamic's) takes the
+    eager path, whose gradient is the CPU's; without grad mode the kernel."""
+    s, g, w = _attention_inputs(gen, 64, 16, 1000, cuda)
+    before = vertex_attention.launches
+    g_card = g.clone().requires_grad_(True)
+    out = vertex_attention.vertex_attention_warp(s, g_card, w, 0.3, 100.0)
+    assert vertex_attention.launches == before and out.requires_grad
+    out.square().sum().backward()
+    g_cpu = g.cpu().requires_grad_(True)
+    vertex_attention.vertex_attention_warp(s.cpu(), g_cpu, w.cpu(), 0.3, 100.0).square().sum() \
+        .backward()
+    # the same float32 function on two devices: sums in other orders
+    assert float((g_card.grad.cpu() - g_cpu.grad).norm()) <= 1e-4 * float(g_cpu.grad.norm())
+    with torch.no_grad():
+        taken = vertex_attention.vertex_attention_warp(s, g_card, w, 0.3, 100.0)
+    assert vertex_attention.launches == before + 1
+    assert _attention_gap(taken, out.detach()) <= ATT_REL
+
+
+def test_vertex_attention_kernel_propagates_nan_as_the_eager_path(gen, cuda):
+    """A NaN component of a warp vector makes that component of its ray's
+    warps NaN; a NaN sample makes M, and so every warp, NaN."""
+    s, g, w = _attention_inputs(gen, 64, 64, 1000, cuda)
+    w_nan = w.clone()
+    w_nan[3, 17, 1] = float("nan")
+    got = vertex_attention.vertex_attention_cuda(s, g, w_nan, 0.15, 1e4)
+    want = vertex_attention.vertex_attention_eager(s, g, w_nan, 0.15, 1e4)
+    assert torch.equal(got.isnan(), want.isnan()) and bool(got[3, :, 1].isnan().all())
+    assert int(got.isnan().sum()) == got.shape[1]
+    s_nan = s.clone()
+    s_nan[5, 2, 0] = float("nan")
+    assert bool(vertex_attention.vertex_attention_cuda(s_nan, g, w, 0.15, 1e4).isnan().all())
+    assert bool(vertex_attention.vertex_attention_eager(s_nan, g, w, 0.15, 1e4).isnan().all())
