@@ -5,6 +5,8 @@ into the reference's torch modules (reference utils.py save_run layout:
 model_coarse.pt / model_fine.pt / model_warp_field.pt) and produce identical
 forward outputs.
 """
+import _torch_threads  # noqa: F401
+
 import os
 
 import numpy as np

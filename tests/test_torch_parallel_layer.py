@@ -16,6 +16,7 @@ the port to JAX with the JAX package's import_torch_state_dict.
 
 Tolerances: float32 rtol 1e-5 (atol 1e-6 where values cross 0).
 """
+import _torch_threads  # noqa: F401
 
 import numpy as np
 import pytest

@@ -32,6 +32,8 @@ Tolerances: float32 rtol 1e-5 (the collectives sum in another order: atol
 1e-6 where values cross 0); training runs rtol 1e-4 (tests/test_parallel.py);
 bf16 runs 2e-3.
 """
+import _torch_threads  # noqa: F401
+
 import os
 import subprocess
 import sys

@@ -37,6 +37,8 @@ two orders round a hidden activation to different bf16 values. Against the
 Pallas kernel 2e-5 in float32 and 5e-2 in bf16, as
 tests/test_torch_port_experts.py holds the plain version.
 """
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

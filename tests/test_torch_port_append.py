@@ -12,6 +12,8 @@ rgb_fine 2e-3, because the fine pass can flip an inverse-CDF bin where u
 meets a cdf entry to float precision; bf16 2e-2 (one summation-order
 difference can flip a bf16 rounding that carries through later layers).
 """
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

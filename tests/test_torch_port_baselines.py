@@ -14,6 +14,8 @@ chain of sums in another order lies between them: the fit's losses
 convolutions to 1e-4 absolute on outputs in (0, 1) and its loss gradient to
 1e-4 by relative norm.
 """
+import _torch_threads  # noqa: F401
+
 import glob
 import importlib.util
 import json

@@ -3,6 +3,8 @@
 Inputs come from a seeded numpy RandomState and go through the JAX function
 and its port counterpart on the CPU (the port with device="cpu").
 """
+import _torch_threads  # noqa: F401
+
 import ast
 import os
 import subprocess

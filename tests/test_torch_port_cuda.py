@@ -31,6 +31,8 @@ in lane order, against 512-vertex chunks, sum() and bmm), and exp(-M) is
 subtracted per pair rather than as exp(-M) sum_v w after the sums: 1e-5 of
 the largest warp. It has no atomics on floats, so two runs agree bit for bit.
 """
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

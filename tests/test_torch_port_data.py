@@ -6,6 +6,8 @@ loader and the batch gather are held against the JAX package's on the same
 split directory; the small training recipe of the verify notes runs through
 `train_torch.py --device cpu` on a dataset the JAX package generated.
 """
+import _torch_threads  # noqa: F401
+
 import json
 import os
 import subprocess

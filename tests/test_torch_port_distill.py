@@ -13,6 +13,8 @@ Training recipe note: tiny runs need --sigma_noise_std=1 and
 --foreground_sample_ratio=0.5, or they collapse into a transparent field and
 the teacher has no density to distill.
 """
+import _torch_threads  # noqa: F401
+
 import copy
 import json
 import os

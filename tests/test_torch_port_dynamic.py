@@ -24,6 +24,8 @@ Tolerances, each with its reason:
     inverse-CDF bin where u meets a cdf entry to float precision; losses 1e-5.
   * ray-mesh hits: t 1e-5, and the same face and hit flags.
 """
+import _torch_threads  # noqa: F401
+
 import json
 import os
 import pickle

@@ -13,6 +13,8 @@ the rows' maxima lie far apart, so that the global max underflows rows the
 per-row max keeps; the two agree where nothing underflows). Last, a 1-epoch
 `train_torch` run on such a pkl, whose run dir reloads the same body.
 """
+import _torch_threads  # noqa: F401
+
 import os
 import pickle
 

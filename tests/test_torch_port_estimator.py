@@ -32,6 +32,8 @@ to its mean square and E[x^2] - E[x]^2 (flax's formula, which the port keeps)
 cancels: there the port's train-mode forward is held to 1e-5 of the same
 module in float64, where JAX's on the CPU lies ~1e-3 away (held to 5e-3).
 """
+import _torch_threads  # noqa: F401
+
 import os
 from typing import Optional
 

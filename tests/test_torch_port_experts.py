@@ -18,6 +18,8 @@ directly, since a first Adam step alone moves every weight by lr whatever the
 gradient's size. The weights after the three steps are held to 2 % of lr:
 where a gradient is tiny against Adam's eps the two frameworks' last bits show.
 """
+import _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

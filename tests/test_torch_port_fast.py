@@ -15,6 +15,8 @@ arithmetic; the probe distances bit for bit); rgb 2e-3, as the slice's
 rgb_fine (a fine sample can flip an inverse-CDF bin); cap 1.0 against the
 port's own full pipeline 1e-5 (the same computation on the same rays).
 """
+import _torch_threads  # noqa: F401
+
 import os
 
 import numpy as np

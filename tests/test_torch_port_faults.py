@@ -11,6 +11,8 @@ re-renders train + val into <run_dir>/inference.gif and img_XXX.png, and
 nothing when it is 0. Sizes: a 4x4 two-view dataset, one or two steps of 2x16
 nets.
 """
+import _torch_threads  # noqa: F401
+
 import os
 
 import imageio.v3 as iio

@@ -21,6 +21,8 @@ of the pixels and the face on at least 98 % (16x16 views of a symmetric
 body put a few centre pixels on seams). transforms.json within 1e-6; the
 train/val split and the config's keys exactly.
 """
+import _torch_threads  # noqa: F401
+
 import json
 import os
 import subprocess

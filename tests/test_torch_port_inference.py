@@ -15,6 +15,8 @@ inverse-CDF bin); PNG pixels exactly; GIF pixels exactly the palette entry
 of each pixel's nearest levels, which lies within the encoder's stated
 per-channel error.
 """
+import _torch_threads  # noqa: F401
+
 import json
 import os
 import shutil

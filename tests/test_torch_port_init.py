@@ -15,6 +15,8 @@ the two-sample Kolmogorov-Smirnov statistic against flax's draw at the same
 shape below 0.015 (at these sizes two draws of one distribution stay below
 ~0.011 with probability 0.999). The old clipped draw fails that statistic.
 """
+import _torch_threads  # noqa: F401
+
 import math
 
 import numpy as np

@@ -22,6 +22,8 @@ Tolerances, each with its reason:
     sampling can flip an inverse-CDF bin where u meets a cdf entry to float
     precision, so the losses agree to 1e-4 relative.
 """
+import _torch_threads  # noqa: F401
+
 import os
 
 import numpy as np

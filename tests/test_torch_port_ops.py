@@ -6,6 +6,8 @@ the JAX oracles and the Pallas kernels in interpret mode. The kernels
 themselves run on the card, through chip_smoke.py and
 tests/test_torch_port_cuda.py.
 """
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

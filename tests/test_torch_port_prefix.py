@@ -22,6 +22,8 @@ and db 3e-2 by relative norm (JAX rounds dW per 256-row tile, autograd once).
 The pipeline: rgb_coarse 1e-5 (float32), rgb_fine 2e-3 (an inverse-CDF bin
 can flip where u meets a cdf entry), bf16 2e-2.
 """
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,8 @@ held to one bf16 step, 2^-7 relative.
 where every wrapper takes its plain version and a record carries a host-clock
 `host_ms`, never the card's `ms`.
 """
+import _torch_threads  # noqa: F401
+
 import importlib.util
 import json
 import os

@@ -11,6 +11,8 @@ Tolerances are those of test_pipeline_parity.py: 2e-4 on rgb_coarse and 2e-3
 on rgb_fine (the fine pass can flip an inverse-CDF bin where u meets a cdf
 entry to float precision).
 """
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import os
 

@@ -25,6 +25,8 @@ with the same argmin; fresh scores 1e-4 relative; aliasing floors
 FLOOR_DB, which covers the JAX tool's two printed decimals and a few
 silhouette rays that hit a neighbouring face in the other package.
 """
+import _torch_threads  # noqa: F401
+
 import importlib.util
 import json
 import os

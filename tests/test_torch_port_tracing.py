@@ -8,6 +8,8 @@ the same bits with the recorder on and off; each span's ends lie within 1 ms
 of its `record_function` event's in a CPU profile; a full buffer drops spans
 and counts them. Sizes: 4x4 views, 2x16 nets, 4 + 4 samples.
 """
+import _torch_threads  # noqa: F401
+
 import collections
 
 import numpy as np

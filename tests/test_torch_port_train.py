@@ -16,6 +16,8 @@ flipped bf16 rounding carries through the chain); losses 1e-5; optimizer
 1e-6; the 20-step loss trajectory 2e-3 relative, as
 tests/test_training_parity.py holds JAX to a torch oracle.
 """
+import _torch_threads  # noqa: F401
+
 import argparse
 import os
 

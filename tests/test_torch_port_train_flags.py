@@ -7,6 +7,8 @@ panels against the arrays JAX's matplotlib figure is drawn from, the
 vedo_data files against JAX's), and the solver's logging through a writer.
 Sizes: a 4x4 or 8x8 two-view dataset, one or two steps of 2x16 nets.
 """
+import _torch_threads  # noqa: F401
+
 import json
 import os
 import re

@@ -20,6 +20,8 @@ of the reference's (a ReLU mask flip moves a row's dX by a whole term), every
 dW and db by relative norm 3e-2 (JAX rounds dW per 256-row tile, torch's
 autograd once over all rows).
 """
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -27,6 +27,8 @@ Tolerances, each with its reason:
     Adam step from the same weights) 1e-4.
   * inference scores 1e-4 relative (as tests/test_torch_port_inference.py).
 """
+import _torch_threads  # noqa: F401
+
 import os
 
 import numpy as np

@@ -11,6 +11,8 @@ max bit for bit, the pass test never drops a pair whose logit is above 0,
 and the modified softmax summed per pair as (e - e0) w with V e0 added to the
 normaliser is the eager result.
 """
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch
