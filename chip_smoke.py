@@ -2294,8 +2294,8 @@ def phase_smpl_family(tmp: str, dataset_dir: str, what: str, model_type: str,
         lbs_ms = time_ms(lambda: passes.goal_verts_table(batch["image_indices"]), reps=5,
                          warmup=1)
         pose_ms = time_ms(lambda: passes.pose(batch), reps=5, warmup=1)
-        print(f"{what}: device ms per step: LBS of the batch's poses {lbs_ms:.3f}, the whole "
-              f"per-ray conditioning (LBS, table gathers"
+        print(f"{what}: device ms per step: the batch's goal vertices (a lookup of the pose "
+              f"table skinned once) {lbs_ms:.3f}, the whole per-ray conditioning (table gathers"
               f"{', vertex embedder' if model_type != 'dummy_dynamic' else ''}) {pose_ms:.3f}")
         if model_type == "dummy_dynamic":
             goal, warps = passes.pose(batch)

@@ -14,13 +14,16 @@ nets as a per-ray conditioning prefix.
 
 The SMPL-driven families look each ray's image up in the estimator's pose
 table (a buffer of `smpl_estimator`; the image-wise estimator's one pose for
-every ray) and run SMPL LBS on those poses inside the step
-(`FamilyPasses.goal_verts_table`); with --images_per_batch K only on the
-batch's (at most K) unique images. dummy_dynamic and image_wise_dynamic warp
-every coarse sample by vertex attention (ops/vertex_attention.py) toward
-the canonical mesh, and have no fine pass; append_vertex_locations_to_nerf
-embeds the goal mesh's vertex cloud once per image (`VertexEmbedder`) and
-hands it to both nets as a 64-wide prefix.
+every ray) and take those poses' SMPL LBS vertices
+(`FamilyPasses.goal_verts_table`); with --images_per_batch K only the
+batch's (at most K) unique images. A table that needs no gradient is skinned
+whole once per table version and looked up after (`FamilyPasses.skinned_table`);
+a table that needs one, and the image-wise pose, run LBS inside the step.
+dummy_dynamic and image_wise_dynamic warp every coarse sample by vertex
+attention (ops/vertex_attention.py) toward the canonical mesh, and have no
+fine pass; append_vertex_locations_to_nerf embeds the goal mesh's vertex
+cloud once per image (`VertexEmbedder`) and hands it to both nets as a
+64-wide prefix.
 
 Three families have a pipeline of their own (`FamilyPasses.smpl`, `.warp_only`,
 `.vertex_sphere`), from samples the loader precomputed, with no fine pass:
@@ -57,9 +60,10 @@ Spans (`tracing`): `pass.coarse` and `pass.fine` hold a pass; inside them
 `pass.sample` (coarse sampling, or the fine inverse-CDF sampling: kernel A),
 `pass.warp` (the warp field or vertex attention), `pass.net` (the runner: B,
 D or PyTorch's layers) and `pass.integrate` (`raw2outputs`). `pass.lbs`,
-before the coarse pass, holds the SMPL-driven families' in-step LBS of the
-batch's poses, and for the two attention families the per-vertex warps
-canonical - goal and the per-ray gathers.
+before the coarse pass, holds the SMPL-driven families' goal vertices of the
+batch's poses (the skinned table's lookup, or in-step LBS), and for the two
+attention families the per-vertex warps canonical - goal and the per-ray
+gathers.
 smpl_estimator trains a CNN with no render pipeline (training/estimator.py).
 """
 from __future__ import annotations
@@ -82,7 +86,7 @@ from smpl_nerf_tpu_torch.ops import fused_mlp_v2 as fused_v2
 from smpl_nerf_tpu_torch.ops.vertex_attention import vertex_attention_warp
 from smpl_nerf_tpu_torch.ops.vertex_sphere import sample_warps_by_vertex_sphere_rays
 
-# the families that run SMPL LBS on the batch's images inside the step
+# the families that take the SMPL LBS vertices of the batch's images
 DYNAMIC_FAMILIES = ("dummy_dynamic", "image_wise_dynamic", "append_vertex_locations_to_nerf")
 # their pipeline has a coarse pass only, whatever --run_fine says
 COARSE_ONLY_FAMILIES = ("dummy_dynamic", "image_wise_dynamic")
@@ -90,6 +94,10 @@ COARSE_ONLY_FAMILIES = ("dummy_dynamic", "image_wise_dynamic")
 SAMPLE_FAMILIES = ("smpl", "warp", "vertex_sphere")
 # the families that need the SMPL model (LBS in the step, or vertex_sphere's loader)
 SMPL_MODEL_FAMILIES = DYNAMIC_FAMILIES + ("vertex_sphere",)
+# the skinned pose tables (`FamilyPasses.skinned_table`): lookups that found
+# the table's vertices, and builds (one smpl_forward call each); no device sync
+goal_table_hits = 0
+goal_table_builds = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,6 +351,7 @@ class FamilyPasses:
         self.extras = extras or {}
         self.run = _make_net_runner(cfg, models, encoders)
         self._betas, self._canonical = {}, {}
+        self._skinned = []      # (table, its _version, (verts, warps)), least recent first
 
     def betas(self, device) -> torch.Tensor:
         """The betas on `device`, copied there once (a copy per batch would
@@ -361,34 +370,74 @@ class FamilyPasses:
                 self.extras["smpl_model"], self.betas(device), torch.zeros(69, device=device))
         return self._canonical[key]
 
+    def skinned_table(self, table: torch.Tensor):
+        """(verts [N_img, V, 3], canonical - verts [N_img, V, 3]) of a pose table
+        that needs no gradient: LBS of the whole table, once per table version,
+        kept on the table's device.
+
+        The key is the table tensor itself (which fixes its device) and its
+        `_version`: a new table (`training.solver.swap_pose_table`, a checkpoint
+        load that replaces the buffer) or an in-place write (`load_state_dict`)
+        skins anew. An entry holds its table, so no other table can take its
+        place. The two most recent tables are kept: the train table outlives
+        each validation's swap. Built as normal tensors even under
+        inference_mode, so that a later step under autograd may save them.
+        """
+        global goal_table_hits, goal_table_builds
+        for i, (t, version, tables) in enumerate(self._skinned):
+            if t is table and version == table._version:
+                goal_table_hits += 1
+                self._skinned.append(self._skinned.pop(i))
+                return tables
+        with torch.inference_mode(False), torch.no_grad():
+            device = table.device
+            verts = smpl_mod.smpl_forward(self.extras["smpl_model"], self.betas(device), table)
+            tables = verts, self.canonical_vertices(device)[None] - verts
+        goal_table_builds += 1
+        kept = [e for e in self._skinned if e[0] is not table][-1:]
+        self._skinned = kept + [(table, table._version, tables)]
+        return tables
+
+    def _goal_rows(self, image_indices: torch.Tensor):
+        """(verts [K | N_img, V, 3], their warps canonical - verts, ray_pos [R]):
+        `goal_verts_table`'s rows and the warps of the same rows."""
+        est = self.models["smpl_estimator"]
+        image_indices = image_indices.long()
+        table = get_pose_table(self.models)
+        K = self.cfg.images_per_batch
+        rows = None                                         # the whole table
+        if table is None:
+            ray_pos = torch.zeros_like(image_indices)
+        elif K and K < table.shape[0]:
+            uniq = unique_padded(image_indices, K)
+            rows = uniq.clamp(min=0)
+            ray_pos = torch.argmax((image_indices[:, None] == uniq[None, :]).int(), 1)
+        else:
+            ray_pos = image_indices
+        if table is not None and not table.requires_grad:
+            verts, warps = self.skinned_table(table)
+            if rows is not None:
+                verts, warps = verts[rows], warps[rows]
+            return verts, warps, ray_pos
+        poses = est() if table is None else table if rows is None else est(rows)
+        device = image_indices.device
+        verts = smpl_mod.smpl_forward(self.extras["smpl_model"], self.betas(device), poses)
+        return verts, self.canonical_vertices(device)[None] - verts, ray_pos
+
     def goal_verts_table(self, image_indices: torch.Tensor):
         """(verts_table [K | N_img, V, 3], ray_pos [R]): LBS vertices of the
         estimator's poses for the images the batch touches, and each ray's row.
 
-        With --images_per_batch K below the table's length, LBS runs on the
+        With --images_per_batch K below the table's length, the rows are the
         batch's unique images only (`unique_padded`: sorted, padded with -1,
         which looks up image 0), and ray_pos is the first slot holding the
         ray's image; a ray whose image is not among them maps to slot 0 (the
         solver's guards keep such batches out). The image-wise estimator has
         one pose, which every ray takes (where the JAX package's lookup is
-        out of range past image 0).
+        out of range past image 0). The rows of a table that needs no gradient
+        come from `skinned_table`; else LBS runs on the rows' poses here.
         """
-        est = self.models["smpl_estimator"]
-        image_indices = image_indices.long()
-        table = get_pose_table(self.models)
-        K = self.cfg.images_per_batch
-        if table is None:
-            poses = est()
-            ray_pos = torch.zeros_like(image_indices)
-        elif K and K < table.shape[0]:
-            uniq = unique_padded(image_indices, K)
-            poses = est(uniq.clamp(min=0))
-            ray_pos = torch.argmax((image_indices[:, None] == uniq[None, :]).int(), 1)
-        else:
-            poses = table
-            ray_pos = image_indices
-        device = image_indices.device
-        verts = smpl_mod.smpl_forward(self.extras["smpl_model"], self.betas(device), poses)
+        verts, _, ray_pos = self._goal_rows(image_indices)
         return verts, ray_pos
 
     def pose(self, batch):
@@ -404,9 +453,8 @@ class FamilyPasses:
             return two_joint_pose(self.cfg, batch)
         if mt in DYNAMIC_FAMILIES:
             with tracing.span("pass.lbs"):
-                verts, ray_pos = self.goal_verts_table(batch["image_indices"])
+                verts, warps, ray_pos = self._goal_rows(batch["image_indices"])
                 if mt != "append_vertex_locations_to_nerf":
-                    warps = self.canonical_vertices(verts.device)[None] - verts
                     return verts[ray_pos], warps[ray_pos]
             # embedded once per image of the table, then gathered per ray
             return self.models["vertex_embedder"](verts.reshape(verts.shape[0], -1))[ray_pos]

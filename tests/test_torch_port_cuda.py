@@ -1001,6 +1001,30 @@ def test_dummy_dynamic_kernels_b_and_c_take_per_sample_directions(gen, cuda):
         assert float((a - b).norm()) <= BWD_DW_REL * float(b.norm()) + 1e-6
 
 
+def test_dummy_dynamic_steps_on_the_skinned_table_match_per_step_lbs_on_cuda(gen, cuda):
+    """Three dummy_dynamic training steps on the card with the skinned pose
+    table, and the same steps with LBS in every step (a table that needs a
+    gradient, which also sends the attention to the eager path): the same
+    losses to bf16 rounding (the bound of the CPU comparison above); every
+    step after the first looks the table up."""
+    from smpl_nerf_tpu_torch import pipelines
+    poses = _dynamic_setup(gen, "dummy_dynamic")[2]
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in _dynamic_batch(gen, poses, 300).items()}
+               for _ in range(3)]
+    losses, counts = {}, {}
+    for per_step in (False, True):
+        args, pipe, _ = _dynamic_setup(np.random.RandomState(0), "dummy_dynamic",
+                                       "--use_fused_mlp=-1", device=cuda)
+        pipe.models["smpl_estimator"].goal_poses.requires_grad_(per_step)
+        sol = solver.Solver(pipe, args)
+        b0, h0 = pipelines.goal_table_builds, pipelines.goal_table_hits
+        losses[per_step] = [float(sol.train_step(b, None)["loss"]) for b in batches]
+        counts[per_step] = (pipelines.goal_table_builds - b0, pipelines.goal_table_hits - h0)
+    assert counts == {False: (1, 2), True: (0, 0)}
+    for got, want in zip(losses[False], losses[True]):
+        assert np.isfinite(got) and abs(got - want) <= 2e-2 * want
+
+
 def test_append_vertices_kernel_path_on_cuda_matches_plain_versions_on_cpu(gen, cuda):
     """Kernels A and D (a 64-wide embedding prefix) on the card against the
     plain versions on the CPU."""

@@ -372,6 +372,145 @@ def test_swap_pose_table_renders_with_the_split_table_like_jax(rng, humans):
         pass
 
 
+# ------------------------------------------------ the skinned pose table
+
+def _port_pipeline(model_type, goal_poses, humans, images_per_batch=0, extra=()):
+    """(port pipeline, its args): the nets as the factory draws them."""
+    _, pm = humans
+    pargs = port_config.config_parser().parse_args(_argv(model_type, images_per_batch, extra))
+    pextras = {"smpl_model": pm, "betas": np.zeros(10, np.float32),
+               "num_images": len(goal_poses), "goal_poses": goal_poses,
+               "num_vertices": pm.num_vertices}
+    models, encoders = factory.build_models_and_params(pargs, seed=0, device="cpu",
+                                                       extras=pextras)
+    return pipelines.build_pipeline(pipelines.RenderConfig.from_args(pargs), models, encoders,
+                                    pextras), pargs
+
+
+def _counts():
+    return pipelines.goal_table_builds, pipelines.goal_table_hits, smpl.lbs_calls
+
+
+@pytest.mark.parametrize("model_type", ["dummy_dynamic", "append_vertex_locations_to_nerf"])
+@pytest.mark.parametrize("images_per_batch", [0, 2])
+def test_skinned_table_gives_the_per_step_lbs_over_training_steps(rng, humans, model_type,
+                                                                  images_per_batch):
+    """Three training steps on the skinned table and on the per-step path (the
+    same weights, a table that needs a gradient): the same goal rows, per-ray
+    conditioning and losses, to float32 rounding."""
+    goal_poses = (0.25 * rng.randn(N_IMG, 69)).astype(np.float32)
+    cached, pargs = _port_pipeline(model_type, goal_poses, humans, images_per_batch)
+    per_step, _ = _port_pipeline(model_type, goal_poses, humans, images_per_batch)
+    per_step.models["smpl_estimator"].goal_poses.requires_grad_(True)
+    solvers = [solver.Solver(p, pargs) for p in (cached, per_step)]
+    b0, h0, _ = _counts()
+    for step in range(3):
+        idx = rng.choice([1, 3], R) if images_per_batch else rng.randint(0, N_IMG, R)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in _batch(rng, humans, goal_poses, idx).items()}
+        (got, got_pos), (want, want_pos) = (p.passes.goal_verts_table(batch["image_indices"])
+                                            for p in (cached, per_step))
+        assert got.shape == want.shape == (images_per_batch or N_IMG, 3120, 3)
+        torch.testing.assert_close(got_pos, want_pos, rtol=0, atol=0)
+        np.testing.assert_allclose(to_np(got), to_np(want), rtol=0, atol=1e-6)
+        conditioning = [p.passes.pose(batch) for p in (cached, per_step)]
+        if model_type == "dummy_dynamic":
+            for a, b in zip(*conditioning):
+                np.testing.assert_allclose(to_np(a), to_np(b), rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_allclose(to_np(conditioning[0]), to_np(conditioning[1]),
+                                       rtol=0, atol=1e-6)
+        got_loss, want_loss = (sol.train_step(batch, None) for sol in solvers)
+        for key in want_loss:
+            assert float(got_loss[key]) == pytest.approx(float(want_loss[key]), abs=1e-6), key
+    # one build, then every lookup (three goal_verts_table, three pose, three steps) hits
+    assert _counts()[:2] == (b0 + 1, h0 + 8)
+
+
+def test_skinned_table_follows_a_swapped_or_loaded_table(rng, humans):
+    """Inside swap_pose_table the rows are the validation table's, after it
+    the train table's again (kept, not skinned anew); an in-place load of the
+    buffer and a load that replaces it each skin anew."""
+    goal_poses = (0.25 * rng.randn(N_IMG, 69)).astype(np.float32)
+    ppipe, _ = _port_pipeline("dummy_dynamic", goal_poses, humans, images_per_batch=2)
+    passes, est = ppipe.passes, ppipe.models["smpl_estimator"]
+    _, pm = humans
+
+    def rows_of(poses, idx):
+        verts, ray_pos = passes.goal_verts_table(torch.from_numpy(np.asarray(idx, np.int32)))
+        want = smpl.smpl_forward(pm, np.zeros(10), torch.from_numpy(poses))
+        np.testing.assert_allclose(to_np(verts[ray_pos]), to_np(want[list(idx)]),
+                                   rtol=0, atol=LBS_ATOL)
+
+    val_poses = (0.25 * rng.randn(3, 69)).astype(np.float32)
+    b0, h0, _ = _counts()
+    rows_of(goal_poses, [0, 3, 3])
+    with torch.no_grad(), solver.swap_pose_table(ppipe.models, val_poses):
+        rows_of(val_poses, [2, 1])
+        rows_of(val_poses, [0, 2])
+    rows_of(goal_poses, [1, 2, 1])
+    assert _counts()[:2] == (b0 + 2, h0 + 2)                  # the train table outlived the swap
+    with torch.no_grad(), solver.swap_pose_table(ppipe.models, val_poses):
+        rows_of(val_poses, [1])                               # a new table object: built anew
+    rows_of(goal_poses, [0, 1])                               # and the train table kept again
+    assert _counts()[:2] == (b0 + 3, h0 + 3)
+    moved = goal_poses + 0.2
+    table = est.goal_poses
+    est.load_state_dict({"goal_poses": torch.from_numpy(moved)})       # in place
+    assert est.goal_poses is table
+    rows_of(moved, [3, 0])
+    longer = (0.25 * rng.randn(N_IMG + 2, 69)).astype(np.float32)
+    est.load_state_dict({"goal_poses": torch.from_numpy(longer)})      # replaces the buffer
+    rows_of(longer, [5, 4])
+    assert _counts()[:2] == (b0 + 5, h0 + 3)
+    assert len(passes._skinned) == 2
+
+
+def test_skinned_table_builds_once_per_table_version(rng, humans):
+    """N steps on one table: one build, N - 1 hits, one smpl_forward call
+    (the canonical mesh, skinned once per device, made before counting)."""
+    goal_poses = (0.25 * rng.randn(N_IMG, 69)).astype(np.float32)
+    ppipe, pargs = _port_pipeline("dummy_dynamic", goal_poses, humans, images_per_batch=2)
+    ppipe.passes.canonical_vertices(torch.device("cpu"))
+    sol = solver.Solver(ppipe, pargs)
+    n = 4
+    batches = [{k: torch.from_numpy(v) for k, v in
+                _batch(rng, humans, goal_poses, rng.choice([0, 2], R)).items()}
+               for _ in range(n)]                             # _batch skins to aim its rays
+    b0, h0, l0 = _counts()
+    for batch in batches:
+        sol.train_step(batch, None)
+    assert _counts() == (b0 + 1, h0 + n - 1, l0 + 1)
+
+
+@pytest.mark.parametrize("model_type", ["dummy_dynamic", "image_wise_dynamic"])
+def test_pose_that_takes_a_gradient_keeps_lbs_in_every_step(rng, humans, model_type):
+    """A pose table that needs a gradient, and the image-wise estimator's
+    trainable pose, run smpl_forward in every step, and the loss's gradient
+    reaches the pose."""
+    n_img = N_IMG if model_type == "dummy_dynamic" else 1
+    goal_poses = (0.25 * rng.randn(n_img, 69)).astype(np.float32)
+    ppipe, _ = _port_pipeline(model_type, goal_poses, humans, images_per_batch=0,
+                              extra=("--warp_radius=0.05",))
+    est = ppipe.models["smpl_estimator"]
+    if model_type == "dummy_dynamic":
+        est.goal_poses.requires_grad_(True)
+        pose_leaves = [est.goal_poses]
+    else:
+        pose_leaves = [est.arm_angle_l, est.arm_angle_r]
+    ppipe.passes.canonical_vertices(torch.device("cpu"))
+    batches = [_batch(rng, humans, goal_poses, rng.randint(0, n_img, R)) for _ in range(3)]
+    b0, h0, l0 = _counts()
+    for step, batch in enumerate(batches):
+        for leaf in pose_leaves:
+            leaf.grad = None
+        out = ppipe({k: torch.from_numpy(v) for k, v in batch.items()})
+        ((out["rgb_coarse"] - torch.from_numpy(batch["rgb"])) ** 2).mean().backward()
+        assert _counts() == (b0, h0, l0 + step + 1)
+        grads = torch.cat([leaf.grad.reshape(-1) for leaf in pose_leaves])
+        assert torch.isfinite(grads).all() and float(grads.abs().max()) > 0
+
+
 @pytest.mark.parametrize("model_type", ["dummy_dynamic", "smpl_nerf"])
 def test_gmm_loss_step_matches_jax(rng, humans, model_type):
     """One loss with the GMM prior, an Adam step on it, and the loss after."""
