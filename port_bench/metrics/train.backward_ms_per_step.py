@@ -1,0 +1,17 @@
+"""Device ms a training step of the operations launched under the program's
+`solver.backward` span inside `solver.step` (image_wise_dynamic: the
+attention's backward, the frozen net's input gradient and LBS's backward),
+from the traced stretch's attribution of each device operation to the span
+open when it was launched (traffic/train_dynamic.py). None where the record
+has no attribution or nothing ran there."""
+
+
+def read(rec):
+    if rec is None or rec.get("kind") != "train" or not rec.get("steps"):
+        return None
+    kernels = rec.get("kernels")
+    if not kernels or not kernels.get("by_span"):
+        return None
+    seconds = sum(s for path, (s, _) in kernels["by_span"].items()
+                  if {"solver.step", "solver.backward"} <= set(path.split("/")))
+    return 1e3 * seconds / rec["steps"] if seconds > 0 else None

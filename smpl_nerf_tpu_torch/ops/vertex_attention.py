@@ -24,9 +24,14 @@ LBS), and every call on the CPU, takes the eager version below, which the CPU
 tests hold against the JAX package. A CUDA call in another dtype than float32
 raises: nothing falls back.
 
+`relu_attention_warp` is image_wise_dynamic's normalised-ReLU attention: one
+mesh for every ray, eager and differentiable on every device (its backward
+carries the pose gradient through the goal vertices).
+
 `calls` counts the calls of `vertex_attention_warp`, `pairs` the (sample,
 vertex) pairs R*S*V they took, from the shapes (no device sync); `launches`
-the calls the kernel took.
+the calls the kernel took; `relu_calls` and `relu_pairs` the same two counts
+of `relu_attention_warp` (R*S*V with its one mesh's V).
 """
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ from smpl_nerf_tpu_torch.ops import _build
 calls = 0             # vertex_attention_warp calls
 pairs = 0             # (sample, vertex) pairs they attended over
 launches = 0          # calls the kernel took
+relu_calls = 0        # relu_attention_warp calls
+relu_pairs = 0        # (sample, vertex) pairs they attended over
 
 
 def _dist(samples: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
@@ -157,10 +164,13 @@ def relu_attention_warp(samples: torch.Tensor, goal_vertices: torch.Tensor,
 
     samples [R, S, 3]; goal_vertices [V, 3] and warp_vectors [V, 3] (one mesh).
     Differentiable in the vertices, so the gradient reaches the estimated pose
-    through LBS.
+    through LBS. Counted in `relu_calls` / `relu_pairs` (from the shapes).
     """
+    global relu_calls, relu_pairs
     R, S, _ = samples.shape
     V = goal_vertices.shape[0]
+    relu_calls += 1
+    relu_pairs += R * S * V
     s_att = torch.zeros((R, S), device=samples.device)
     s_warp = torch.zeros((R, S, 3), device=samples.device)
     for lo in range(0, V, chunk_size):

@@ -17,16 +17,32 @@ Three optimiser groups, as the JAX trainer's: `pose` (the estimator, at
 --lrate) and `frozen` (the coarse net, when --load_coarse_model loads a
 trained one). The net runs as a plain module here, as the JAX trainer applies
 it: no kernel is on this path.
+
+Spans (`tracing`, off by default), with the names `Solver.train` gives its
+own: `solver.epoch` around an epoch; `solver.step` around a step, holding
+`solver.forward` (the pose loss: `pass.lbs` for the canonical and goal LBS
+and the warps, `pass.warp` for the attention, `pass.net` for the encodings
+and the net, `pass.integrate` for `raw2outputs` and the MSE),
+`solver.backward` and `solver.optimizer`; then `solver.loss_read`, the
+step's one host read of the loss.
+
+Seams: `train_image_wise` builds its loss through the module global
+`make_pose_loss`, which calls the module global `relu_attention_warp`, both
+looked up by name at each call; `step_callback(step, loss, models)`, when
+given, runs after each step's loss read (step counts from 1; `models` holds
+the estimator, whose `.grad`s are the step's until the next step starts),
+and a true return ends training there.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from smpl_nerf_tpu_torch import tracing
 from smpl_nerf_tpu_torch.core.integrate import raw2outputs
 from smpl_nerf_tpu_torch.core.sampling import coarse_bins
 from smpl_nerf_tpu_torch.models import smpl as smpl_mod
@@ -53,19 +69,23 @@ def make_pose_loss(smpl_model, betas, cfg: RenderConfig, model_coarse, pos_enc, 
     photometric MSE through LBS -> vertex-attention warp -> the coarse net."""
     def pose_loss(pose, origins, dirs, z_vals, rgb_truth):
         device = origins.device
-        canonical = smpl_mod.smpl_forward(smpl_model, betas, torch.zeros(69, device=device))
-        goal = smpl_mod.smpl_forward(smpl_model, betas, pose)
+        with tracing.span("pass.lbs"):
+            canonical = smpl_mod.smpl_forward(smpl_model, betas, torch.zeros(69, device=device))
+            goal = smpl_mod.smpl_forward(smpl_model, betas, pose)
+            warps = canonical - goal
         samples = origins[:, None, :] + dirs[:, None, :] * z_vals[..., None]
-        warped = samples + relu_attention_warp(samples, goal, canonical - goal,
-                                               cfg.warp_radius)
-        sample_dirs = warped - origins[:, None, :]
-        dirs_norm = sample_dirs / torch.linalg.norm(sample_dirs, dim=-1, keepdim=True)
-        R, S = samples.shape[:2]
-        inputs = torch.cat([pos_enc.encode(warped).reshape(R * S, -1),
-                            dir_enc.encode(dirs_norm).reshape(R * S, -1)], -1)
-        raw = model_coarse(inputs).reshape(R, S, 4)
-        out = raw2outputs(raw, z_vals, sample_dirs, 0.0, cfg.white_background)
-        return torch.mean((out.rgb - rgb_truth) ** 2)
+        with tracing.span("pass.warp"):
+            warped = samples + relu_attention_warp(samples, goal, warps, cfg.warp_radius)
+            sample_dirs = warped - origins[:, None, :]
+        with tracing.span("pass.net"):
+            dirs_norm = sample_dirs / torch.linalg.norm(sample_dirs, dim=-1, keepdim=True)
+            R, S = samples.shape[:2]
+            inputs = torch.cat([pos_enc.encode(warped).reshape(R * S, -1),
+                                dir_enc.encode(dirs_norm).reshape(R * S, -1)], -1)
+            raw = model_coarse(inputs).reshape(R, S, 4)
+        with tracing.span("pass.integrate"):
+            out = raw2outputs(raw, z_vals, sample_dirs, 0.0, cfg.white_background)
+            return torch.mean((out.rgb - rgb_truth) ** 2)
 
     return pose_loss
 
@@ -78,11 +98,14 @@ def _load_coarse(path: str) -> dict:
 
 
 def train_image_wise(args, parser, train_data, val_data, extras: dict,
-                     log_dir: Optional[str] = None, device="cuda", writer=None):
+                     log_dir: Optional[str] = None, device="cuda", writer=None,
+                     step_callback: Optional[Callable[[int, float, dict], bool]] = None):
     """Returns ({model name: state dict}, per-epoch pose errors); saves the run
     (model_coarse.pt, model_fine.pt, model_smpl_estimator.pt, config.txt) and
     pose_errors.json under log_dir. Each epoch's loss and pose error also go
-    to `writer`, when given, as loss/train and pose/error."""
+    to `writer`, when given, as loss/train and pose/error. `step_callback`:
+    the module docstring's seam; an epoch it ends early reports the pose
+    error of its steps so far."""
     device = torch.device(device)
     smpl_model = extras["smpl_model"]
     betas = torch.as_tensor(extras["betas"], dtype=torch.float32, device=device).reshape(-1)
@@ -139,24 +162,38 @@ def train_image_wise(args, parser, train_data, val_data, extras: dict,
     bs = min(int(args.batchsize), hw)
     np_rng = np.random.RandomState(seed)
     pose_errors = []
+    step, stop = 0, False
     for epoch in range(int(args.num_epochs)):
         losses = []
-        for i in np_rng.permutation(train_data.num_images):
-            sl = slice(i * hw, (i + 1) * hw)
-            origins = torch.as_tensor(train_data.origins[sl], device=device)
-            dirs = torch.as_tensor(train_data.directions[sl], device=device)
-            rgb = torch.as_tensor(train_data.rgb[sl], device=device)
-            z_simple = torch.as_tensor(_z_vals_simple(args), device=device)
-            z_vals = z_vals_for_image(origins, dirs, z_simple)
-            perm = np_rng.permutation(hw)
-            for lo in range(0, hw - bs + 1, bs):
-                idx = torch.as_tensor(perm[lo:lo + bs], device=device)
-                optimizer.zero_grad(set_to_none=True)
-                loss = pose_loss(estimator()[0], origins[idx], dirs[idx], z_vals[idx], rgb[idx])
-                loss.backward()
-                optimizer.step()
-                scheduler.step()
-                losses.append(float(loss.detach()))
+        with tracing.span("solver.epoch", request=epoch):
+            for i in np_rng.permutation(train_data.num_images):
+                sl = slice(i * hw, (i + 1) * hw)
+                origins = torch.as_tensor(train_data.origins[sl], device=device)
+                dirs = torch.as_tensor(train_data.directions[sl], device=device)
+                rgb = torch.as_tensor(train_data.rgb[sl], device=device)
+                z_simple = torch.as_tensor(_z_vals_simple(args), device=device)
+                z_vals = z_vals_for_image(origins, dirs, z_simple)
+                perm = np_rng.permutation(hw)
+                for lo in range(0, hw - bs + 1, bs):
+                    idx = torch.as_tensor(perm[lo:lo + bs], device=device)
+                    step += 1
+                    with tracing.span("solver.step", request=step):
+                        optimizer.zero_grad(set_to_none=True)
+                        with tracing.span("solver.forward"):
+                            loss = pose_loss(estimator()[0], origins[idx], dirs[idx],
+                                             z_vals[idx], rgb[idx])
+                        with tracing.span("solver.backward"):
+                            loss.backward()
+                        with tracing.span("solver.optimizer"):
+                            optimizer.step()
+                            scheduler.step()
+                    with tracing.span("solver.loss_read", request=step):
+                        losses.append(float(loss.detach()))      # synchronises the device
+                    if step_callback is not None and step_callback(step, losses[-1], models):
+                        stop = True
+                        break
+                if stop:
+                    break
         arm_l, arm_r = float(estimator.arm_angle_l.detach()), float(estimator.arm_angle_r.detach())
         pose_err = (arm_l - gt_pose[LEFT_ARM_JOINT]) ** 2 + (arm_r - gt_pose[RIGHT_ARM_JOINT]) ** 2
         pose_errors.append(float(pose_err))
@@ -165,6 +202,8 @@ def train_image_wise(args, parser, train_data, val_data, extras: dict,
         if writer is not None:
             writer.add_scalar("loss/train", float(np.mean(losses)), epoch)
             writer.add_scalar("pose/error", float(pose_err), epoch)
+        if stop:
+            break
 
     final = {name: models[name].state_dict()
              for name in ("model_coarse", "model_fine", "smpl_estimator")}
