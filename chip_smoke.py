@@ -36,7 +36,12 @@ unguarded, so that any failure exits non-zero:
      torch.relu(x @ w)) and G (the vertex attention, against its eager path
      at port_bench's dummy_dynamic.train shapes: 2048 and 4096 rays of 64
      samples over 6,890 vertices, radius 0.15, T = 1e4; twice, bit for bit;
-     its bound from port_bench/counts_dynamic.py); A, B and D also at the
+     its bound from port_bench/counts_dynamic.py) and H (the normalised-ReLU
+     attention's forward and backward against the eager path under autograd
+     at port_bench's image_wise_dynamic.train shapes: 2048 rays of 64 samples
+     over the seeded 6,890-vertex body, radius 0.15; twice, bit for bit; the
+     share of pairs inside a sphere, H1's and H2's device ms beside the eager
+     path's, its bound by operations); A, B and D also at the
      shapes of phase 10b's whole-image 256^2 batch (A at R = 65,536, B at
      12,582,912 rows, D at 8,388,608 rows of 705 floats; timed over 5 calls:
      by_rays / by_rows);
@@ -159,7 +164,8 @@ unguarded, so that any failure exits non-zero:
      C's prefix columns of dX, held against B's and C's plain versions
      (BWD_DW_REL) and against the plain path (LOSS_REL); then
      image_wise_dynamic for one epoch from the dummy_dynamic run's coarse
-     net, frozen: the pose error printed and the arm angles moved;
+     net, frozen: the pose error printed, the arm angles moved, kernel H
+     launched;
  10. the generator and the families on its data: `create_dataset_torch`
      (cli.dataset) on the card writes an smpl set and an smpl_nerf set of 10
      views at 64x64 (a circle, ratio 0.8, both arms swept over the views: the
@@ -272,6 +278,12 @@ Tolerances, each with its reason:
     roofline script's 8-layer chain the kernel is held against the library
     call: max |kernel - library| <= 2^-7 * max |output| (they have agreed bit
     for bit so far), and the chain's mean |output| must be above 0.
+  * kernel H (the normalised-ReLU attention): every pair's a is the eager
+    path's, so the forward differs only in the order of its sums (max |err|
+    <= 1e-5 * max |eager|) and each gradient in the order of its sums and in
+    summing c (s - v) / d per pair where autograd takes grad / (2 d) times
+    2 (s - v): |err| <= 1e-4 * |eager| by norm. No float atomics: two runs
+    agree bit for bit.
   * fused-kernel expert render vs the culled render (same plan, same bf16
     serving type, the two roundings of `ep.tiles_apply` and of the kernel):
     max |drgb| <= 5e-2, the tool's own bound.
@@ -391,6 +403,12 @@ RELU_ROWS, RELU_WIDTHS, RELU_REL, RELU_ABS = 131072, (256, 512, 1024), 2.0 ** -7
 # 64 coarse samples, SMPL's vertices, warp_radius and warp_temperature; its
 # bound against the eager path (tests/test_torch_port_cuda.py's ATT_REL)
 ATT_R, ATT_R_VAL, ATT_S, ATT_V, ATT_RADIUS, ATT_T, ATT_REL = 2048, 4096, 64, 6890, 0.15, 1e4, 1e-5
+# kernel H at port_bench's image_wise_dynamic.train: a step's 2048 rays of 64
+# samples (ATT_S) over the 6,890-vertex body at its warp_radius (ATT_RADIUS);
+# the gradients' bound against the eager path under autograd, by norm
+# (tests/test_torch_port_cuda.py's RELU_GRAD_REL); ~10 forward and ~20 backward
+# FP32 operations a (sample, vertex) pair, the published math once a pair
+RELU_R, RELU_GRAD_REL, RELU_OPS_PER_PAIR = 2048, 1e-4, 30
 DISTILL_GRID, DISTILL_SAMPLES, DISTILL_CHUNK = 20, 192, 4096
 DISTILL_STEPS, FINETUNE_STEPS, FINETUNE2_STEPS, DISTILL_REPS = 300, 100, 40, 3
 OCCUPIED_SHARE = (0.05, 0.35)   # bisection target; the contract is 2-50 %
@@ -1053,6 +1071,105 @@ def phase_vertex_attention(device) -> dict:
             "parity_ok": True, "library_ms": None, **by_rays[str(ATT_R)], "by_rays": by_rays}
 
 
+def relu_attention_inputs(gen, R: int, S: int, device) -> tuple:
+    """Kernel H's inputs: one mesh, port_bench's seeded 6,890-vertex body at
+    rest (`body.make_body`) with warp vectors N(0, 0.05); rays from a circle
+    of radius 2.4, half aimed at the body's vertices, half at a 2 m box
+    around it (most of them miss, as most of a view's pixels do), S samples a
+    ray between 1 and 4 (the cell's near and far)."""
+    from port_bench import body as body_mod
+
+    verts = body_mod.make_body(int(gen.randint(1 << 30)))["v_template"]
+    V = len(verts)
+    angle = gen.uniform(0, 2 * np.pi, R)
+    origins = np.stack([2.4 * np.cos(angle), gen.normal(0, 0.1, R), 2.4 * np.sin(angle)], -1)
+    target = np.where((np.arange(R) % 2 == 0)[:, None],
+                      verts[gen.randint(0, V, R)] + gen.normal(0, 0.05, (R, 3)),
+                      gen.uniform(-1, 1, (R, 3)))
+    dirs = target - origins
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    z = np.linspace(1.0, 4.0, S)[None, :] + gen.uniform(0, 3.0 / S, (R, S))
+    samples = origins[:, None, :] + z[..., None] * dirs[:, None, :]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                 for a in (samples, verts, gen.normal(0, 0.05, (V, 3))))
+
+
+def phase_relu_attention(device) -> dict:
+    """Kernel H against the eager path under autograd at an
+    image_wise_dynamic.train step's shapes (RELU_R rays x ATT_S samples over
+    the 6,890-vertex body, radius ATT_RADIUS; the goal vertices and the warps
+    take a gradient, the samples none, as in the cell; then the samples' too):
+    the forward's and each gradient's error, bit identity on a rerun, the
+    share of pairs inside a sphere, event and device ms of H1 (the forward)
+    and H2 (the backward) beside the eager forward and backward's, and the
+    bound by operations."""
+    from smpl_nerf_tpu_torch.ops import vertex_attention as va
+
+    gen = np.random.RandomState(RELU_R + 24)
+    s, g, w = relu_attention_inputs(gen, RELU_R, ATT_S, device)
+    cot = torch.from_numpy(gen.normal(size=(RELU_R, ATT_S, 3)).astype(np.float32)).to(device)
+
+    def step(fn, with_samples=False):
+        leaves = [s.clone().requires_grad_(with_samples), g.clone().requires_grad_(True),
+                  w.clone().requires_grad_(True)]
+        out = fn(*leaves, ATT_RADIUS)
+        wrt = leaves if with_samples else leaves[1:]
+        return (out.detach(), *torch.autograd.grad(out, wrt, cot))
+
+    got, again = step(va.relu_attention_cuda), step(va.relu_attention_cuda)
+    got_s = step(va.relu_attention_cuda, True)
+    want = step(va.relu_attention_eager, True)
+    torch.cuda.synchronize()
+    fwd_err = float((got[0] - want[0]).abs().max()) / max(float(want[0].abs().max()), 1e-30)
+    errors = {"out": fwd_err}
+    for name, a, b in zip(("samples", "goal", "warps"), got_s[1:], want[1:]):
+        errors[name] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        errors[name + "_max"] = (float((a - b).abs().max())
+                                 / max(float(b.abs().max()), 1e-30))
+    identical = all(torch.equal(a, b) for a, b in zip(got, again))
+    with torch.no_grad():
+        inside = sum(int((torch.relu(ATT_RADIUS - va._dist(s, g[None, lo:lo + 512])) > 0).sum())
+                     for lo in range(0, len(g), 512))
+    pairs = RELU_R * ATT_S * len(g)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: va.relu_attention_cuda(s, g, w, ATT_RADIUS))
+        h1_ms = kernel_device_ms("relu_attention", lambda: va.relu_attention_cuda(s, g, w,
+                                                                                  ATT_RADIUS))
+    step_ms = time_ms(lambda: step(va.relu_attention_cuda))
+    h12_ms = kernel_device_ms("relu_attention", lambda: step(va.relu_attention_cuda))
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: va.relu_attention_eager(s, g, w, ATT_RADIUS), reps=5,
+                               warmup=1)
+    plain_ms = time_ms(lambda: step(va.relu_attention_eager), reps=5, warmup=1)
+    bound_ms = 1e3 * pairs * RELU_OPS_PER_PAIR / PEAK_F32_FLOPS
+    print(f"kernel H relu_attention R={RELU_R} S={ATT_S} V={len(g)} radius {ATT_RADIUS}: "
+          f"forward max|err| / max|eager| = {fwd_err:.3e} (bound {ATT_REL}); gradients "
+          f"|err| / |eager| samples {errors['samples']:.3e}, goal {errors['goal']:.3e}, warps "
+          f"{errors['warps']:.3e} (bound {RELU_GRAD_REL}; by max: samples "
+          f"{errors['samples_max']:.3e}, goal {errors['goal_max']:.3e}, warps "
+          f"{errors['warps_max']:.3e}); bit-identical twice {identical}; pairs inside a "
+          f"sphere {inside} of {pairs} ({100 * inside / pairs:.3f} %)")
+    print(f"  time: H1 forward {fwd_ms:.4f} ms (device {h1_ms:.4f}), H1 + H2 forward and "
+          f"backward {step_ms:.4f} ms (device {h12_ms:.4f}; H2 {h12_ms - h1_ms:.4f}); eager "
+          f"forward {plain_fwd_ms:.4f} ms, forward and backward {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms (operations: {RELU_OPS_PER_PAIR} a pair at {PEAK_F32_FLOPS:.3g} "
+          f"FLOP/s, {pairs} pairs): {100 * bound_ms / h12_ms:.1f} % of it")
+    check(all(bool(torch.isfinite(t).all()) for t in got_s), "relu_attention gave non-finite "
+          "values")
+    check(identical, "relu_attention differs from run to run")
+    check(fwd_err <= ATT_REL, "relu_attention's forward disagrees with the eager path")
+    check(all(errors[k] <= RELU_GRAD_REL for k in ("samples", "goal", "warps")),
+          "relu_attention's gradients disagree with the eager path's")
+    return {"name": "relu_attention", "route": "cuda",
+            "source": "smpl_nerf_tpu_torch/csrc/relu_attention.cu",
+            "replaces": "none: smpl_nerf_tpu/ops/vertex_attention.py relu_attention_warp runs "
+                        "a lax.scan", "parity_ok": True,
+            "library_ms": None, "max_rel_err": errors, "ms": step_ms, "device_ms": h12_ms,
+            "h1_ms": fwd_ms, "h1_device_ms": h1_ms, "h2_device_ms": h12_ms - h1_ms,
+            "plain_ms": plain_ms, "plain_forward_ms": plain_fwd_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "inside_share": inside / pairs}
+
+
 def launch_counts() -> dict:
     from smpl_nerf_tpu_torch.ops import (expert_tiles, fused_mlp, fused_mlp_v2, relu_matmul,
                                          sample_pdf_cuda, vertex_attention)
@@ -1060,7 +1177,8 @@ def launch_counts() -> dict:
     return {"sample_pdf": sample_pdf_cuda.launches, "fused_mlp_v2_fwd": fused_mlp_v2.launches,
             "fused_mlp_fwd": fused_mlp.launches, "fused_mlp_v2_bwd": fused_mlp_v2.launches_bwd,
             "expert_tiles": expert_tiles.launches, "relu_matmul": relu_matmul.launches,
-            "vertex_attention": vertex_attention.launches}
+            "vertex_attention": vertex_attention.launches,
+            "relu_attention": vertex_attention.relu_launches}
 
 
 def zero_launch_counts() -> None:
@@ -1070,6 +1188,7 @@ def zero_launch_counts() -> None:
     sample_pdf_cuda.launches = fused_mlp_v2.launches = 0
     fused_mlp.launches = fused_mlp_v2.launches_bwd = 0
     expert_tiles.launches = relu_matmul.launches = vertex_attention.launches = 0
+    vertex_attention.relu_launches = 0
 
 
 def write_runs(tmp: str, config_file: str, tag: str, kernel_flags: tuple, extra=(),
@@ -1543,7 +1662,9 @@ KERNEL_SYMBOLS = (("sample_pdf", ("sample_pdf_kernel",)),
                   ("expert_tiles", ("expert_tiles_kernel",)),
                   ("relu_matmul", ("relu_matmul_kernel",)),
                   ("vertex_attention", ("vertex_attention_max_kernel",
-                                        "vertex_attention_sum_kernel")))
+                                        "vertex_attention_sum_kernel")),
+                  ("relu_attention", ("relu_attention_rows_kernel", "relu_attention_vertex_kernel",
+                                      "relu_attention_reduce_kernel")))
 
 
 def profiled(what: str, fn, top: int = 10) -> dict:
@@ -2344,7 +2465,7 @@ def phase_images_per_batch(tmp: str, dataset_dir: str) -> dict:
 def phase_image_wise(tmp: str, dataset_dir: str, coarse_run: str) -> dict:
     """image_wise_dynamic: one epoch (every train view, two 2048-ray steps
     each) optimising the two arm angles through the dummy_dynamic run's coarse
-    net, frozen (--load_coarse_model). No kernel is on this path."""
+    net, frozen (--load_coarse_model). Kernel H takes every attention call."""
     from smpl_nerf_tpu_torch.cli import train as train_cli
 
     zero_launch_counts()
@@ -2362,6 +2483,7 @@ def phase_image_wise(tmp: str, dataset_dir: str, coarse_run: str) -> dict:
     check(bool(np.isfinite(errors).all()) and all(np.isfinite(arms)),
           "image_wise: non-finite pose error or arm angles")
     check(any(a != 0.0 for a in arms), "image_wise: the arm angles did not move")
+    check(counts["relu_attention"] > 0, "image_wise: kernel H took no attention call")
     coarse = torch.load(os.path.join(coarse_run, "model_coarse.pt"), map_location="cpu")
     check(all(torch.equal(v.cpu(), coarse[k]) for k, v in final["model_coarse"].items()),
           "image_wise: the frozen coarse net moved")
@@ -3408,7 +3530,7 @@ def main() -> None:
     ptxas = phase_build()
     kernels = [phase_sample_pdf(device), phase_fused_mlp(device), phase_fused_mlp_v1(device),
                phase_fused_bwd(device), phase_expert_tiles(device), phase_relu_matmul(device),
-               phase_vertex_attention(device)]
+               phase_vertex_attention(device), phase_relu_attention(device)]
     prefix_kernels = phase_fused_prefix(device)
     odd_k = phase_odd_k(device)
     for k in kernels:

@@ -33,7 +33,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("sample_pdf", "fused_mlp_v2_fwd", "fused_mlp_fwd", "fused_mlp_v2_bwd",
-           "expert_tiles", "relu_matmul", "vertex_attention")
+           "expert_tiles", "relu_matmul", "vertex_attention", "relu_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

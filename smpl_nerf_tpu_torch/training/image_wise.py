@@ -16,7 +16,8 @@ Three optimiser groups, as the JAX trainer's: `pose` (the estimator, at
 --lrate_pose, decayed by --lrate_pose_decay), `net` (the coarse net at
 --lrate) and `frozen` (the coarse net, when --load_coarse_model loads a
 trained one). The net runs as a plain module here, as the JAX trainer applies
-it: no kernel is on this path.
+it; on the card the attention's forward and backward take kernel H
+(`ops/vertex_attention.relu_attention_cuda`).
 
 Spans (`tracing`, off by default), with the names `Solver.train` gives its
 own: `solver.epoch` around an epoch; `solver.step` around a step, holding

@@ -30,6 +30,19 @@ eager path's; the sums run in another order (16 lanes, then their partials
 in lane order, against 512-vertex chunks, sum() and bmm), and exp(-M) is
 subtracted per pair rather than as exp(-M) sum_v w after the sums: 1e-5 of
 the largest warp. It has no atomics on floats, so two runs agree bit for bit.
+Kernel H (the normalised-ReLU attention and its backward) takes every pair's
+a = relu(r - d) as the eager path rounds it, so the forward differs only in
+the order of its sums (ATT_REL); its gradients sum per pair what autograd
+sums per chunk (c (s - v) / d where autograd takes grad / (2 d) times 2 (s -
+v)): 1e-4 by norm (RELU_GRAD_REL), far under what a wrong or missing term
+moves. Against float64 H must be no further than twice the eager float32
+path, or within 1e-5 by norm: its sums over samples are longer chains than
+autograd's. It has no float atomics: two runs agree bit for bit. Four
+image_wise_dynamic steps through H and through the eager path from one seed:
+the losses within 1e-5 (a few float32 ulps of the warps), the arm angles
+within 3e-4 rad (Adam moves each by ~3e-3 a step; the gradients after the
+first step differ in float32's rounding, by up to ~1e-2 relative where a
+sample's attention sum is small, which moves a step by ~3e-5).
 """
 import _torch_threads  # noqa: F401
 
@@ -52,6 +65,8 @@ PDF_ATOL = 2e-4
 MLP_REL = 2e-2
 BWD_DX_MAX, BWD_DX_MEAN, BWD_DW_REL = 0.25, 5e-3, 3e-2
 ATT_REL = 1e-5
+RELU_GRAD_REL, RELU_F64_FACTOR, RELU_F64_FLOOR = 1e-4, 2.0, 1e-5
+IW_STEPS, IW_LOSS_REL, IW_ANGLE_ATOL = 4, 1e-5, 3e-4
 
 
 @pytest.fixture
@@ -1241,3 +1256,149 @@ def test_vertex_attention_kernel_propagates_nan_as_the_eager_path(gen, cuda):
     s_nan[5, 2, 0] = float("nan")
     assert bool(vertex_attention.vertex_attention_cuda(s_nan, g, w, 0.15, 1e4).isnan().all())
     assert bool(vertex_attention.vertex_attention_eager(s_nan, g, w, 0.15, 1e4).isnan().all())
+
+
+# ------------------------------------ kernel H: the normalised-ReLU attention
+
+def _relu_inputs(gen, R, S, V, device, far_tile=False):
+    """`_attention_inputs` with one mesh for every ray ([V, 3] goal and warp
+    vectors), as image_wise_dynamic attends; `far_tile` moves vertices 64-127
+    (a whole tile of the vertex-major backward) 10 away, so no pair of that
+    tile lies inside a sphere."""
+    s, g, w = _attention_inputs(gen, R, S, V, device, meshes=1)
+    g, w = g[0].contiguous(), w[0].contiguous()
+    if far_tile:
+        g[64:128, 0] += 10.0
+    return s, g, w
+
+
+def _relu_grads(fn, s, g, w, radius, cot):
+    """(out, d samples, d goal, d warps) of fn under the cotangent `cot`."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (s, g, w)]
+    out = fn(*leaves, radius)
+    return (out.detach(), *torch.autograd.grad(out, leaves, cot))
+
+
+def _norm_gap(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp(min=1e-300))
+
+
+@pytest.mark.parametrize("R,S,V,radius,far_tile", [
+    (256, 64, 6890, 0.15, False),   # an eighth of an image_wise_dynamic.train step
+    (7, 9, 1000, 0.15, False),      # N = 63: under one block of the forward
+    (65, 3, 1000, 0.3, False),      # N = 195, V not a multiple of the backward's 64
+    (64, 16, 1, 0.3, False),        # one vertex
+    (64, 16, 513, 0.15, False),     # one past a tile of the forward
+    (128, 16, 200, 0.15, True),     # a vertex tile with no pair inside
+])
+def test_relu_attention_kernel_matches_eager_autograd_and_float64(gen, cuda, R, S, V, radius,
+                                                                 far_tile):
+    """H's forward and its three gradients against the eager path under
+    autograd (float32, the same a for every pair: only the order of the sums
+    differs) and against the eager path in float64, where H is to be no
+    further than RELU_F64_FACTOR times the eager float32 path, or within
+    RELU_F64_FLOOR."""
+    s, g, w = _relu_inputs(gen, R, S, V, cuda, far_tile)
+    cot = torch.from_numpy(gen.normal(size=(R, S, 3)).astype(np.float32)).to(cuda)
+    before = vertex_attention.relu_launches
+    got = _relu_grads(vertex_attention.relu_attention_cuda, s, g, w, radius, cot)
+    torch.cuda.synchronize()
+    assert vertex_attention.relu_launches == before + 1
+    want = _relu_grads(vertex_attention.relu_attention_eager, s, g, w, radius, cot)
+    exact = _relu_grads(vertex_attention.relu_attention_eager, s.double(), g.double(),
+                        w.double(), radius, cot.double())
+    assert float(want[0].abs().max()) > 0.0                   # some sample carries a warp
+    assert _attention_gap(got[0], want[0]) <= ATT_REL
+    for name, a, b, x in zip(("samples", "goal", "warps"), got[1:], want[1:], exact[1:]):
+        assert float(b.abs().max()) > 0.0, name
+        assert _norm_gap(a, b) <= RELU_GRAD_REL, (name, _norm_gap(a, b))
+        assert _norm_gap(a, x) <= max(RELU_F64_FACTOR * _norm_gap(b, x), RELU_F64_FLOOR), \
+            (name, _norm_gap(a, x), _norm_gap(b, x))
+    if far_tile:
+        assert not bool(got[2][64:128].any()) and not bool(got[3][64:128].any())
+
+
+def test_relu_attention_kernel_is_bit_identical_from_run_to_run(gen, cuda):
+    s, g, w = _relu_inputs(gen, 2048, 64, 6890, cuda)
+    cot = torch.from_numpy(gen.normal(size=(2048, 64, 3)).astype(np.float32)).to(cuda)
+    first = _relu_grads(vertex_attention.relu_attention_cuda, s, g, w, 0.15, cot)
+    again = _relu_grads(vertex_attention.relu_attention_cuda, s, g, w, 0.15, cot)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_relu_attention_kernel_carries_the_goal_gradient_and_none_when_detached(gen, cuda):
+    """The benchmark's goal_vjp_gap seam: a fresh goal leaf receives the
+    gradient through H's backward (held against the plain closed form), and a
+    detached goal leaves the output without a gradient."""
+    s, g, w = _relu_inputs(gen, 512, 64, 6890, cuda)
+    cot = torch.from_numpy(gen.normal(size=(512, 64, 3)).astype(np.float32)).to(cuda)
+    goal = g.clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = vertex_attention.relu_attention_warp(s, goal, w, 0.15)
+        grad, = torch.autograd.grad(out, goal, cot)
+    _, want, _ = vertex_attention.relu_attention_backward_plain(s, g, w, 0.15, cot)
+    assert float(want.abs().max()) > 0.0
+    assert _norm_gap(grad, want) <= RELU_GRAD_REL
+    with torch.enable_grad():
+        assert not vertex_attention.relu_attention_warp(s, goal.detach(), w, 0.15).requires_grad
+
+
+def _image_wise_run(cuda, tmp_path, attention=None):
+    """(losses, arm angles after each step) of IW_STEPS train_image_wise steps
+    on the card from a posed body (so the goal vertices' term of the gradient
+    is not 0), through H, or through `attention` at the trainer's seam."""
+    from smpl_nerf_tpu_torch.data.datasets import RayData
+    from smpl_nerf_tpu_torch.training import image_wise
+
+    net_path = str(tmp_path / "net.pt")
+    net = RenderRayNet(n_layers=8, width=64, positions_dim=60, directions_dim=24, skips=(4,),
+                       generator=torch.Generator().manual_seed(3))
+    torch.save({k: v.detach().clone() for k, v in net.state_dict().items()}, net_path)
+    args = config.config_parser().parse_args([
+        "--config=", "--model_type=image_wise_dynamic", "--netdepth=8", "--netwidth=64",
+        "--skips=4", "--number_coarse_samples=32", "--use_pallas=0", "--use_fused_mlp=0",
+        "--sigma_noise_std=0", "--white_background=1", "--warp_radius=0.15",
+        "--lrate_pose=3e-3", "--batchsize=256", "--num_epochs=4", "--seed=5",
+        f"--load_coarse_model={net_path}", "--dataset_dir="])
+    rs = np.random.RandomState(9)
+    n = 2 * 16 * 16
+    dirs = np.concatenate([rs.uniform(-0.3, 0.3, (n, 2)), -np.ones((n, 1))], 1)
+    data = RayData(origins=np.tile(np.float32([[0.0, 0.0, 2.5]]), (n, 1)),
+                   directions=dirs.astype(np.float32),
+                   image_indices=np.repeat(np.arange(2, dtype=np.int32), 256), h=16, w=16,
+                   focal=10.0, num_images=2,
+                   camera_transforms=np.tile(np.eye(4, dtype=np.float32), (2, 1, 1)),
+                   human_poses=np.zeros((2, 69), np.float32),
+                   rgb=rs.uniform(0, 1, (n, 3)).astype(np.float32))
+    extras = {"betas": np.zeros(10, np.float32), "smpl_model": factory.smpl_model_for(args),
+              "canonical_pose": rs.normal(0.0, 0.3, 69).astype(np.float32)}
+    losses, angles = [], []
+
+    def callback(step, loss, models):
+        est = models["smpl_estimator"]
+        losses.append(loss)
+        angles.append(torch.cat([est.arm_angle_l, est.arm_angle_r]).detach().cpu())
+        return step == IW_STEPS
+
+    seam = image_wise.relu_attention_warp
+    image_wise.relu_attention_warp = attention or seam
+    try:
+        np.random.seed(5)
+        image_wise.train_image_wise(args, None, data, None, extras, device=cuda,
+                                    step_callback=callback)
+    finally:
+        image_wise.relu_attention_warp = seam
+    return np.array(losses), torch.stack(angles)
+
+
+def test_image_wise_steps_through_kernel_h_match_the_eager_path(gen, cuda, tmp_path):
+    before = vertex_attention.relu_launches
+    losses, angles = _image_wise_run(cuda, tmp_path)
+    assert vertex_attention.relu_launches - before == IW_STEPS
+    eager_losses, eager_angles = _image_wise_run(
+        cuda, tmp_path, lambda s, g, w, r, **k: vertex_attention.relu_attention_eager(s, g, w, r))
+    assert vertex_attention.relu_launches - before == IW_STEPS
+    assert len(losses) == IW_STEPS and np.all(np.isfinite(losses))
+    assert float(angles.abs().max()) > 0.0
+    assert np.max(np.abs(losses - eager_losses) / eager_losses) <= IW_LOSS_REL
+    assert float((angles - eager_angles).abs().max()) <= IW_ANGLE_ATOL
