@@ -276,10 +276,13 @@ def config_parser() -> ConfigArgumentParser:
                         help="accepted for config compatibility: it only changes how "
                              "the JAX package dispatches; steps run one batch at a time")
     parser.add_argument("--grid_encoding", type=int, default=0,
-                        help="1: replace the frequency-encoded MLP with a "
-                             "multi-res dense-grid encoder + tiny head "
-                             "(instant-NGP-style, models/grid_nerf.py) — "
-                             "much faster convergence; beyond-reference")
+                        help="replace the frequency-encoded MLPs (beyond-reference). 1: "
+                             "multi-res dense grids (--grid_levels, --grid_features) + a "
+                             "ReLU trunk of --grid_depth (models/grid_nerf.GridNerf); 2: "
+                             "Instant-NGP's multiresolution hash encoding at its published "
+                             "NeRF sizes (models/grid_nerf.NGP_SIZES) with --grid_features "
+                             "a level + its density and colour MLPs of --grid_width with "
+                             "spherical-harmonic directions (models/grid_nerf.HashGridNerf)")
     parser.add_argument("--grid_levels", type=str, default="8,16,32,64")
     parser.add_argument("--grid_features", type=int, default=4)
     parser.add_argument("--grid_width", type=int, default=64)

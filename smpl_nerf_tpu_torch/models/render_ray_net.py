@@ -68,7 +68,7 @@ def _linear(in_dim: int, out_dim: int, device) -> Dense:
 
 def init_linear_(layer: nn.Module, generator: Optional[torch.Generator],
                  fan_in: Optional[int] = None) -> None:
-    """Flax's Dense init: lecun-normal kernel, zero bias. As flax's
+    """Flax's Dense init: lecun-normal kernel, zero bias (if it has one). As flax's
     `variance_scaling(1, "fan_in", "truncated_normal")`: a standard normal
     truncated to [-2, 2] (its std is 0.8796...), scaled to std sqrt(1 /
     fan_in). `fan_in` defaults to a Linear's (the weight's second
@@ -86,7 +86,8 @@ def init_linear_(layer: nn.Module, generator: Optional[torch.Generator],
     w.clamp_(-2.0, 2.0).mul_(std)
     with torch.no_grad():
         layer.weight.copy_(w)
-        layer.bias.zero_()
+        if layer.bias is not None:
+            layer.bias.zero_()
 
 
 def init_uniform_(layer: nn.Linear, bound: float,

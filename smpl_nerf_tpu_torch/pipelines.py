@@ -39,8 +39,8 @@ Three families have a pipeline of their own (`FamilyPasses.smpl`, `.warp_only`,
     --images_per_batch K only the batch's K unique meshes are read), through
     the coarse net's runner (so kernels B and C, or D, on the card).
 
-The MLP runner owns the encoding step. A net that takes raw rows (GridNerf)
-gets [prefix || xyz || unit dir] and encodes them itself. For a RenderRayNet:
+The MLP runner owns the encoding step. A net that takes raw rows (GridNerf,
+HashGridNerf) gets [prefix || xyz || unit dir] and encodes them itself. For a RenderRayNet:
   * use_fused_mlp=0: PositionalEncoder + the RenderRayNet module,
   * use_fused_mlp=1: encode, then the fused v1 forward (ops/fused_mlp.py): the
     CUDA kernel on the card, its plain version on the CPU; takes any prefix,
@@ -59,7 +59,8 @@ explicit --use_fused_mlp=1|2 raises (JAX silently runs such a net plain).
 Spans (`tracing`): `pass.coarse` and `pass.fine` hold a pass; inside them
 `pass.sample` (coarse sampling, or the fine inverse-CDF sampling: kernel A),
 `pass.warp` (the warp field or vertex attention), `pass.net` (the runner: B,
-D or PyTorch's layers) and `pass.integrate` (`raw2outputs`). `pass.lbs`,
+D or PyTorch's layers; a hash-grid net's `pass.encode` inside it) and
+`pass.integrate` (`raw2outputs`). `pass.lbs`,
 before the coarse pass, holds the SMPL-driven families' goal vertices of the
 batch's poses (the skinned table's lookup, or in-step LBS), and for the two
 attention families the per-vertex warps canonical - goal and the per-ray

@@ -22,9 +22,13 @@ its compiler puts around generated kernels, which skips the dispatcher call
 that makes `torch.profiler.record_function` cost several µs a span. It is
 entered only while a profiler runs: its exit asserts where a profiler started
 after its enter, as one does inside an epoch or a view when a caller starts
-its profile there. Both it and the profiler test are private to PyTorch, so
-`enable` imports them: the port's import and the off path need neither.
-`disable()` stops recording and keeps the buffer for `snapshot()`.
+its profile there. A range still open when its profiler stops corrupts the
+profiler's memory when it ends later (a CPU profile then crashes the process
+at a later garbage collection), so a caller that stops a profiler while spans
+are open calls `end_ranges()` first. Both the range and the profiler test are
+private to PyTorch, so `enable` imports them: the port's import and the off
+path need neither. `disable()` stops recording and keeps the buffer for
+`snapshot()`.
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ class _Recorder:
         self.dropped = 0
         self.lock = threading.Lock()
         self.local = threading.local()
+        self.ranged: dict = {}               # open spans whose range is open, in order
 
     def stack(self) -> list:
         stack = getattr(self.local, "stack", None)
@@ -92,6 +97,8 @@ class _Span:
             self.range.__enter__()
         start = time.time_ns()
         with rec.lock:
+            if self.range is not None:
+                rec.ranged[self] = None
             if len(rec.spans) < rec.capacity:
                 self.index = len(rec.spans)
                 rec.spans.append([self.name, start, None, parent, request])
@@ -104,8 +111,11 @@ class _Span:
 
     def __exit__(self, *exc):
         end = time.time_ns()
-        if self.range is not None:
-            self.range.__exit__(*exc)
+        with self.rec.lock:
+            ranged, self.range = self.range, None
+            self.rec.ranged.pop(self, None)
+        if ranged is not None:
+            ranged.__exit__(*exc)
         self.rec.stack().pop()
         if self.index is not None:
             self.rec.spans[self.index][2] = end
@@ -135,6 +145,23 @@ def enable(capacity: int) -> None:
     from torch._C._autograd import _profiler_enabled
     from torch._C._profiler import _RecordFunctionFast
     _recorder = _last = _Recorder(capacity)
+
+
+def end_ranges() -> int:
+    """End the profiler ranges of the spans still open, before the caller
+    stops its profiler; the spans stay open in the buffer. Returns how many
+    ranges it ended."""
+    rec = _last
+    if rec is None:
+        return 0
+    with rec.lock:
+        open_spans, rec.ranged = list(reversed(rec.ranged)), {}     # innermost first
+        ranges = [sp.range for sp in open_spans]
+        for sp in open_spans:
+            sp.range = None
+    for r in ranges:
+        r.__exit__(None, None, None)
+    return len(ranges)
 
 
 def disable() -> None:

@@ -20,7 +20,8 @@ BatchNorm's `scale` / `bias` become `weight` / `bias` and its `batch_stats`
 `positional_net.{i}` / `directional_net.0` / `vertices_net.{i}` (a SIREN net
 has RenderRayNet's names), while GridNerf's Dense layers (`trunk_{i}`,
 `trunk_out`, `dir_0`) keep theirs; a leaf that is no layer (`arm_angle_l`,
-`arm_angle_r`, GridNerf's `grid_{res}` [res, res, res, F]) and the
+`arm_angle_r`, GridNerf's `grid_{res}` [res, res, res, F]; HashGridNerf, a port-only
+net, saves its `hash_table` and bias-free layers under the module's names) and the
 `constants` collection (`goal_poses`, a buffer in the port) keep their names.
 A flax ConvTranspose kernel needs its own conversion
 (`cli/pix2pix.state_dict_from_jax`). The CNN estimator's

@@ -9,7 +9,9 @@ append_vertex_locations_to_nerf, and the CNN `SmplEstimator` of
 smpl_estimator, sized to the dataset's images. `--siren 1` builds both nets
 as `SirenRenderRayNet`s, `--grid_encoding 1` as `GridNerf`s (--grid_levels /
 features / width / depth / bound; the direction encoding has
---number_frequencies_directional frequencies), as the JAX factory does.
+--number_frequencies_directional frequencies), as the JAX factory does;
+`--grid_encoding 2` (the port's own) as `HashGridNerf`s at Instant-NGP's
+published sizes (`grid_nerf.NGP_SIZES`; --grid_features / width / bound).
 `smpl_model_for` and `dataset_extras` give the SMPL-driven families and
 vertex_sphere the SMPL model and the per-dataset constants.
 """
@@ -26,7 +28,8 @@ from smpl_nerf_tpu_torch._platform import DEFAULT_DEVICE, resolve_device
 from smpl_nerf_tpu_torch.config import MODEL_TYPES
 from smpl_nerf_tpu_torch.core.encoding import PositionalEncoder
 from smpl_nerf_tpu_torch.models import RenderRayNet, WarpFieldNet
-from smpl_nerf_tpu_torch.models.grid_nerf import GridNerf
+from smpl_nerf_tpu_torch.models import grid_nerf
+from smpl_nerf_tpu_torch.models.grid_nerf import GridNerf, HashGridNerf, HashGridSpec
 from smpl_nerf_tpu_torch.models import smpl as smpl_mod
 from smpl_nerf_tpu_torch.models.dummy_estimators import (DummyImageWiseEstimator,
                                                           DummySmplEstimatorModel)
@@ -118,7 +121,15 @@ def build_models_and_params(args, seed: int = 0, device=DEFAULT_DEVICE,
                   "append_smpl_params": human_pose_dim * 69,
                   "append_vertex_locations_to_nerf": VERTEX_EMBEDDING_DIM}.get(args.model_type, 0)
     models: Dict[str, torch.nn.Module] = {}
-    if int(getattr(args, "grid_encoding", 0) or 0):
+    grid = int(getattr(args, "grid_encoding", 0) or 0)
+    if grid == 2:
+        spec = HashGridSpec.published(features=int(args.grid_features), **grid_nerf.NGP_SIZES)
+        hash_kw = dict(spec=spec, width=int(args.grid_width), additional_input_dim=additional,
+                       bound=float(args.grid_bound), compute_dtype=dtype, device=device,
+                       generator=generator)
+        models["model_coarse"] = HashGridNerf(**hash_kw)
+        models["model_fine"] = HashGridNerf(**hash_kw)
+    elif grid:
         grid_kw = dict(levels=tuple(int(r) for r in str(args.grid_levels).split(",")),
                        features=int(args.grid_features), width=int(args.grid_width),
                        n_layers=int(args.grid_depth),

@@ -43,6 +43,9 @@ the losses within 1e-5 (a few float32 ulps of the warps), the arm angles
 within 3e-4 rad (Adam moves each by ~3e-3 a step; the gradients after the
 first step differ in float32's rounding, by up to ~1e-2 relative where a
 sample's attention sum is small, which moves a step by ~3e-5).
+The hash-grid field (--grid_encoding 2) in float32: the tables' gradients are
+sums over every lookup that hit an entry, in the order the card's atomics
+take them; each within 1e-4 by norm, the raw outputs within 1e-6.
 """
 import _torch_threads  # noqa: F401
 
@@ -67,6 +70,7 @@ BWD_DX_MAX, BWD_DX_MEAN, BWD_DW_REL = 0.25, 5e-3, 3e-2
 ATT_REL = 1e-5
 RELU_GRAD_REL, RELU_F64_FACTOR, RELU_F64_FLOOR = 1e-4, 2.0, 1e-5
 IW_STEPS, IW_LOSS_REL, IW_ANGLE_ATOL = 4, 1e-5, 3e-4
+HASH_RAW_REL, HASH_LOSS_REL, HASH_GRAD_REL = 1e-6, 1e-5, 1e-4
 
 
 @pytest.fixture
@@ -1124,6 +1128,62 @@ def test_grid_gather_backward_on_cuda_matches_the_cpu(gen, cuda):
     (f_c, g_c), (f_k, g_k) = out["cpu"], out["cuda"]
     assert float((f_k - f_c).abs().max()) <= 1e-5
     assert float((g_k - g_c).norm()) <= 1e-5 * float(g_c.norm())
+
+
+def test_hash_grid_field_and_step_on_cuda_match_the_cpu(gen, cuda):
+    """Instant-NGP's published encoding (L 16, F 2, T 2^19, N 16-2048, 64-wide
+    MLPs) on the card against the CPU, from one seed, in float32. The field
+    alone, forward and backward on fixed rows under a fixed cotangent: the
+    encoding's gathers are index_select, whose backward on the card accumulates
+    with atomics (index_add_) in another order than the CPU's, so the raw
+    outputs within HASH_RAW_REL and each gradient within HASH_GRAD_REL by
+    relative norm. Then one smpl_nerf training step through the solver with no
+    draws and the plain fine sampling on both: the loss within HASH_LOSS_REL;
+    the gradients within BWD_DW_REL, as the grid run's above, since the plain
+    sampling's cumsum also adds in another order on the card and can move a
+    rare fine sample by a bin."""
+    R = 256
+    argv = ["--config=", "--model_type=smpl_nerf", "--run_fine=1",
+            "--number_coarse_samples=64", "--number_fine_samples=128", "--use_pallas=0",
+            "--use_fused_mlp=-1", "--compute_dtype=float32", "--sigma_noise_std=0",
+            "--grid_encoding=2", "--grid_features=2", "--grid_width=64", f"--batchsize={R}",
+            "--lrate=1e-2", "--seed=3"]
+    args = config.config_parser().parse_args(argv)
+    angle = gen.uniform(0, 2 * np.pi, R)
+    origins = np.stack([2.4 * np.sin(angle), gen.normal(0, 0.2, R), 2.4 * np.cos(angle)], -1)
+    poses = np.zeros((R, 69))
+    poses[:, [38, 41]] = gen.uniform(0, 0.8, (R, 1))
+    batch = {"ray_translation": origins, "ray_direction": gen.normal(0, 0.3, (R, 3)) - origins,
+             "human_pose": poses, "rgb": gen.uniform(0, 1, (R, 3))}
+    rows = np.concatenate([gen.uniform(-1.7, 1.7, (65536, 3)), gen.normal(0, 1, (65536, 3))], 1)
+    rows[:, 3:] /= np.linalg.norm(rows[:, 3:], axis=1, keepdims=True)
+    cot = gen.normal(0, 1, (65536, 4))
+    out = {}
+    for device in ("cpu", cuda):
+        models, encoders = factory.build_models_and_params(args, seed=3, device=device)
+        net = models["model_fine"]
+        raw = net(torch.from_numpy(np.float32(rows)).to(device))
+        (raw * torch.from_numpy(np.float32(cot)).to(device)).sum().backward()
+        field = (raw.detach().cpu(), {k: p.grad.cpu() for k, p in net.named_parameters()})
+        net.zero_grad()
+        sol = solver.Solver(build_pipeline(RenderConfig.from_args(args), models, encoders), args)
+        tb = {k: torch.from_numpy(np.float32(v)).to(device) for k, v in batch.items()}
+        aux = sol.train_step(tb, None)
+        out[str(device)] = field, float(aux["loss"]), {
+            (m, k): p.grad.cpu() for m, mod in models.items() for k, p in mod.named_parameters()}
+    ((raw_c, gf_c), loss_c, g_c), ((raw_k, gf_k), loss_k, g_k) = out["cpu"], out["cuda"]
+
+    def gap(a, b):
+        return float((a - b).norm()) / float(b.norm())
+
+    assert g_c[("model_fine", "hash_table")].shape == (6098925, 2)
+    assert gap(raw_k, raw_c) <= HASH_RAW_REL
+    field_gaps = {k: gap(gf_k[k], g) for k, g in gf_c.items()}
+    assert max(field_gaps.values()) <= HASH_GRAD_REL, field_gaps
+    assert abs(loss_k - loss_c) <= HASH_LOSS_REL * loss_c
+    step_gaps = {k: gap(g_k[k], g) for k, g in g_c.items()}
+    assert all(float(g.norm()) > 0 for g in g_c.values())
+    assert max(step_gaps.values()) <= BWD_DW_REL, step_gaps
 
 
 # ------------------------------------------------- kernel G: the vertex attention

@@ -201,6 +201,28 @@ def test_a_span_may_hold_a_profilers_start_or_stop():
     assert [s.name for s in tracing.snapshot().spans] == ["solver.epoch", "solver.step"] * 2
 
 
+def test_end_ranges_ends_the_open_spans_ranges_before_a_profiler_stops():
+    """The ranges end inside the profile (its events hold them); the spans
+    stay open until their own exit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tracing.enable(16)
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    with tracing.span("solver.epoch", request=0):
+        with tracing.span("solver.step", request=0):
+            torch.ones(3).sum()
+            assert tracing.end_ranges() == 2
+            prof.stop()
+            assert tracing.snapshot().spans[1].end_ns is None
+    assert tracing.end_ranges() == 0
+    spans = tracing.snapshot().spans
+    assert [s.name for s in spans] == ["solver.epoch", "solver.step"]
+    assert all(s.end_ns is not None for s in spans)
+    assert {"solver.epoch", "solver.step"} <= {e.name() for e in
+                                               prof.profiler.kineto_results.events()}
+
+
 def test_a_kernel_build_is_an_ops_load_span_and_counted(tmp_path, monkeypatch):
     from smpl_nerf_tpu_torch.ops import _build
 
